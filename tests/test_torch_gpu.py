@@ -1,0 +1,113 @@
+"""The PyTorch port's HMC path on a CUDA device.
+
+Every test here is marked ``gpu`` and skips without a card. The file imports
+no JAX, so it runs on a machine with a card and no JAX, past the suite's
+conftest (which imports JAX):
+
+    python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
+
+Each test compares a CUDA run with the same computation on the CPU in
+float64, where the two differ only in summation order (tolerance 1e-10).
+"""
+
+import numpy as np
+import pytest
+import torch
+from torch.func import grad_and_value, vmap
+
+import fugue_tpu_torch as ftt
+from chip_smoke import eight_schools_model, plate_model
+from fugue_tpu_torch import settings
+from fugue_tpu_torch.inference import hmc
+from fugue_tpu_torch.ops import kernels as K
+
+TOL = dict(rtol=1e-10, atol=1e-10)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(autouse=True)
+def _cuda_x64():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    settings.enable_x64(True)
+    yield
+    settings.enable_x64(False)
+
+
+def _plate(device, n=(1 << 16) + 5):
+    y = torch.as_tensor(np.random.default_rng(0).normal(1.5, 2.0, n), device=device)
+    return ftt.stage(plate_model(y), device=device)
+
+
+def _eight_schools(device):
+    return ftt.stage(eight_schools_model(device, torch.float64), device=device)
+
+
+def _inputs(dim, n=32, seed=1):
+    rng = np.random.default_rng(seed)
+    q = rng.normal([1.5, 0.7] + [0.0] * (dim - 2), 0.05, (n, dim))
+    p = rng.normal(0.0, 1.0, (n, dim))
+    log_u = np.log(rng.uniform(size=n))
+    return q, p, log_u
+
+
+@pytest.mark.parametrize("make, eps", [(_plate, 0.002), (_eight_schools, 0.2)])
+def test_transition_on_cuda_equals_cpu(make, eps):
+    out = {}
+    for dev in ("cpu", "cuda"):
+        staged = make(dev)
+        q, p, log_u = (torch.as_tensor(a, device=dev) for a in _inputs(staged.dim))
+        im = torch.ones(staged.dim, dtype=torch.float64, device=dev)
+        out[dev] = hmc.hmc_transition(staged.potential, q, p, log_u, eps, 8, im)
+    qc, ic = out["cpu"]
+    qg, ig = out["cuda"]
+    np.testing.assert_allclose(qg.cpu().numpy(), qc.numpy(), **TOL)
+    np.testing.assert_allclose(ig.accept_prob.cpu().numpy(), ic.accept_prob.numpy(), **TOL)
+    assert torch.equal(ig.accepted.cpu(), ic.accepted)
+
+
+def test_potential_path_never_syncs_with_the_host():
+    """A whole transition on the plate model (kernel included) runs with
+    CUDA sync debugging set to raise on any device-to-host synchronisation."""
+    staged = _plate("cuda")
+    q, p, log_u = (torch.as_tensor(a, device="cuda") for a in _inputs(staged.dim))
+    im = torch.ones(staged.dim, dtype=torch.float64, device="cuda")
+    eps = torch.full((32,), 0.002, dtype=torch.float64, device="cuda")
+    hmc.hmc_transition(staged.potential, q, p, log_u, eps, 4, im)  # load the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hmc.hmc_transition(staged.potential, q, p, log_u, eps, 4, im)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_one_launch_per_batched_gradient():
+    staged = _plate("cuda")
+    q = torch.as_tensor(_inputs(staged.dim)[0], device="cuda")
+    before = dict(K.LAUNCHES)
+    g, u = vmap(grad_and_value(staged.potential))(q)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    assert g.shape == (32, 2) and bool(torch.isfinite(u).all())
+
+
+def test_wrapper_raises_instead_of_falling_back():
+    y = torch.zeros(100, device="cuda")
+    with pytest.raises(TypeError):  # dtype mismatch: no silent plain path
+        K.pnormal_loglik_sum(y, torch.zeros((), dtype=torch.float64, device="cuda"), 1.0)
+    with pytest.raises(ValueError):  # mixed devices
+        K.pnormal_loglik_sum(y, torch.zeros(()), torch.ones(()))
+    with pytest.raises(TypeError):
+        K._check_launch(y.half(), y[:1].half(), y[:1].half())
+
+
+def test_short_chain_on_cuda():
+    staged = _eight_schools("cuda")
+    res = ftt.hmc_chain(0, n_samples=60, n_warmup=60, n_chains=64, staged=staged,
+                        config=ftt.HMCConfig(n_leapfrog=8, target_accept=0.9))
+    mu = res.samples["mu"]
+    assert mu.is_cuda and mu.shape == (64, 60) and bool(torch.isfinite(mu).all())
+    assert res.final_positions.is_cuda and 0.0 < res.step_size < 10.0
