@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's HMC main path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's HMC and SMC main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py                      # all phases
     python3 chip_smoke.py --phases build,kernel
+    python3 chip_smoke.py --phases build,smc_kernels,smc
 
-Phases (each prints one JSON line; any failure raises and exits non-zero):
+Phases (each prints JSON lines; any failure raises and exits non-zero):
 
-1. build         nvcc-build (or load) the CUDA kernel library from
-                 fugue_tpu_torch/csrc.
+1. build         nvcc-build (or load) the three CUDA kernel libraries from
+                 fugue_tpu_torch/csrc, one nvcc per source, all at once.
 2. kernel        the Gaussian-plate kernels against their plain PyTorch
                  versions and a float64 reference, in float32, at
                  (C, N) = (1, 2^24), (64, 2^20), (3, 2^20 + 17), plus a
@@ -22,6 +23,16 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                  through the CUDA kernels (64 chains, L=16, jitter 0.5,
                  200 + 200); gates on the posterior of (mu, sigma), R-hat and
                  the kernels' launch counts.
+5. smc_kernels   the logsumexp and systematic-resampling kernels against
+                 their plain versions and float64 references, at SMC's
+                 131,072 particles, 2^24 / 2^20 and ragged sizes, with
+                 -inf, +inf and NaN inputs and degenerate weights; device
+                 times of kernel, plain version and torch.logsumexp.
+6. smc           ftt.adaptive_smc in float32: bench.py's 20-site
+                 hierarchical model at 131,072 particles with MH and with
+                 HMC rejuvenation, and the conjugate model at 8,192; gates
+                 on convergence, the posterior mean of mu, the conjugate
+                 log-evidence and both kernels' launch counts.
 
 Then it prints the card's name and power limit, one JSON line describing
 the kernels, and as the last line
@@ -39,17 +50,40 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernel", "eight_schools", "gaussian_plate")
-SOURCE = "fugue_tpu_torch/csrc/normal_loglik_sum.cu"
+PHASES = ("build", "kernel", "eight_schools", "gaussian_plate", "smc_kernels", "smc")
+SOURCES = ("normal_loglik_sum", "logsumexp", "systematic_resample")
 REPLACES = {
     "fwd": "fugue_tpu/ops/pallas_kernels.py:310",  # _nll_fwd_kernel
     "bwd": "fugue_tpu/ops/pallas_kernels.py:332",  # _nll_bwd_kernel
+    "lse": "fugue_tpu/ops/pallas_kernels.py:83",  # _plogsumexp_kernel
+    "resample": "fugue_tpu/ops/pallas_kernels.py:186",  # _presample_kernel
 }
 MAIN_SHAPE = (64, 1 << 20)  # (chains, rows) of the plate phase
+N_PARTICLES = 131072  # bench_smc / bench_smc_hmc
+
+# The card's peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s, and FP64
+# operations/s on the CUDA cores (the kernels accumulate in double there).
+HBM_BYTES_PER_S = 3.35e12
+FP64_OPS_PER_S = 34e12
+
+# Weighted posterior mean of mu in bench.py's hierarchical_model under the
+# JAX package's adaptive_smc at 131,072 particles, on the CPU in float64,
+# seeds PRNGKey(0..47), one constant per rejuvenation mode of the smc phase
+# (scripts/smc_reference_mu.py --runs 48). MU_RUN_SD is the standard
+# deviation of one run's estimate across the 48 seeds: the Monte-Carlo
+# error of ONE run at this size; the constant's own standard error is
+# MU_RUN_SD / sqrt(48).
+SMC_MU_RUNS = 48
+SMC_MU = {
+    "mh": {"MU_MEAN": 0.57400469713508, "MU_RUN_SD": 0.026926052783615886},
+    "hmc": {"MU_MEAN": 0.5713615302539027, "MU_RUN_SD": 0.009740783104405557},
+}
 
 # Posterior mean of mu in eight-schools (bench.eight_schools_model), from the
 # JAX package's hmc_chain on the CPU in float64: PRNGKey(0), 1024 chains,
@@ -122,17 +156,26 @@ def device_ms(fn, reps: int = 25, calls: int = 10) -> float:
 # ---------------------------------------------------------------------------
 
 
+def bound_ms(n_bytes: float, n_ops: float):
+    """(least time in ms, what sets it): bytes over the HBM rate against
+    double operations over the FP64 peak."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP64_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def phase_build():
     from fugue_tpu_torch.ops import _build, kernels
 
     t0 = time.perf_counter()
-    path = _build.build("normal_loglik_sum")
-    kernels._lib()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source, at once
+        paths = list(pool.map(_build.build, SOURCES))
+    for name in SOURCES:
+        kernels._lib(name)
     emit({
         "phase": "build",
         "seconds": time.perf_counter() - t0,
-        "source_hash": _build.source_hash("normal_loglik_sum"),
-        "library": os.path.relpath(path, REPO),
+        "source_hashes": {name: _build.source_hash(name) for name in SOURCES},
+        "libraries": [os.path.relpath(path, REPO) for path in paths],
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
     })
@@ -197,10 +240,25 @@ def phase_kernel():
                    else (lambda: K.pnormal_loglik_sum_grad(y, mu, sigma)))
             pfn = ((lambda: K.normal_loglik_sum_ref(y, mu, sigma)) if d == "fwd"
                    else (lambda: K.normal_loglik_sum_grad_ref(y, mu, sigma)))
+            # y read once; per (chain, row) a subtraction and an FMA (fwd),
+            # plus an add (bwd), all in double
+            bound, bound_by = bound_ms(4 * n + 16 * c, (3 if d == "fwd" else 4) * c * n)
             row[d] = {"kernel_vs_f64": k_err, "plain_vs_f64": p_err,
                       "kernel_vs_plain": kp_err,
                       "kernel_ms": device_ms(kfn), "plain_ms": device_ms(pfn),
-                      "kernel_call_ms": median_ms(kfn), "plain_call_ms": median_ms(pfn)}
+                      "kernel_call_ms": median_ms(kfn), "plain_call_ms": median_ms(pfn),
+                      "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+            if c == 1 and d == "fwd":
+                # one PyTorch call computes the one-chain forward: the
+                # Gaussian NLL summed (full=True), i.e. minus the result.
+                # It checks var >= 0 on the host, so it cannot be captured
+                # in a graph: timed eagerly, that check's sync included.
+                def lfn():
+                    return torch.nn.functional.gaussian_nll_loss(
+                        mu.expand(n), y, (sigma * sigma).expand(n), full=True,
+                        reduction="sum")
+                row[d]["library_ms"] = median_ms(lfn)
+                row[d]["library_vs_f64"] = (-lfn().double() - ref["fwd"][0]).abs().max().item()
             results[(c, n, d)] = row[d]
         emit(row)
 
@@ -360,6 +418,270 @@ def phase_gaussian_plate():
     return launches
 
 
+def hierarchical_model(device, dtype=torch.float32):
+    """bench.py's 20-site hierarchical_model (17 groups of 5 observations),
+    its data on ``device`` in ``dtype``. The port's one definition of the
+    model: the tests import it from here."""
+    import fugue_tpu_torch as ftt
+
+    n_groups = 17
+    data = torch.as_tensor(np.random.default_rng(0).normal(0.5, 1.0, (n_groups, 5)),
+                           dtype=dtype, device=device)
+
+    def hierarchical():
+        mu = ftt.sample("mu", ftt.Normal(0.0, 2.0))
+        tau = ftt.sample("tau", ftt.LogNormal(0.0, 0.5))
+        sigma = ftt.sample("sigma", ftt.LogNormal(0.0, 0.5))
+        thetas = []
+        for i in range(n_groups):
+            theta_i = ftt.sample(ftt.addr("theta", i), ftt.Normal(mu, tau))
+            ftt.observe(ftt.addr("y", i), ftt.Normal(theta_i, sigma), data[i])
+            thetas.append(theta_i)
+        return thetas
+
+    return hierarchical
+
+
+def conjugate_data():
+    return np.random.default_rng(7).normal(0.3, 1.0, 32)
+
+
+def conjugate_evidence_model(device, dtype=torch.float32):
+    """bench.py's conjugate_evidence_model: mu ~ N(0, 1), 32 y_i ~ N(mu, 1)."""
+    import fugue_tpu_torch as ftt
+
+    y = torch.as_tensor(conjugate_data(), dtype=dtype, device=device)
+
+    def conjugate():
+        mu = ftt.sample("mu", ftt.Normal(0.0, 1.0))
+        ftt.observe("y", ftt.Normal(mu, 1.0), y)
+        return mu
+
+    return conjugate
+
+
+def conjugate_log_evidence() -> float:
+    """Closed-form log-evidence of ``conjugate_evidence_model``: y is
+    multivariate normal with covariance I + 11^T."""
+    y = conjugate_data()
+    n = y.size
+    quad = float(y @ y - (y.sum() ** 2) / (1.0 + n))
+    return -0.5 * (n * math.log(2 * math.pi) + math.log(1.0 + n) + quad)
+
+
+def _lse_inputs(n, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    finite = 10.0 * torch.randn(n, generator=g, device="cuda")
+    ninf = torch.full((n,), -math.inf, device="cuda")
+    one = ninf.clone()
+    one[n // 3] = 3.0
+    return {"normal_x10": finite, "all_neg_inf": ninf, "one_finite": one}
+
+
+def _exact_systematic(logits64: np.ndarray, u0: float) -> np.ndarray:
+    """Systematic resampling in float64 numpy: the exact reference."""
+    n = logits64.size
+    w = np.exp(logits64 - np.max(logits64))
+    cdf = np.cumsum(w / np.sum(w))
+    us = (np.arange(n) + u0) / n
+    return np.clip(np.searchsorted(cdf, us, side="left"), 0, n - 1)
+
+
+def _check_indices(idx, n, what):
+    check(idx.dtype == torch.int64 and idx.shape == (n,), f"{what}: {idx.dtype} {tuple(idx.shape)}")
+    check(bool((idx[1:] >= idx[:-1]).all()), f"{what}: indices not sorted")
+    check(int(idx[0]) >= 0 and int(idx[-1]) < n, f"{what}: indices out of range")
+
+
+def phase_smc_kernels():
+    """logsumexp and systematic resampling against their plain versions.
+
+    logsumexp tolerance (float32): |kernel - f64| <= max(|plain - f64|,
+    eps32 * |f64|), as for the plate kernel: the kernel sums in double and
+    rounds once. Infinite results must match exactly. float64 input: within
+    1e-12 relative of the plain float64 version.
+
+    Resampling: at 2^17 float32 logits (normal x 4) against an exact float64
+    reference with the same u0, the JAX package's contract: max ancestor
+    deviation <= max(4, 2 x the plain float32 version's), and fewer than 2%
+    of slots differ. float64 input: deviation <= 1 on fewer than 0.1% of
+    slots against the plain float64 version. Every output sorted, in range
+    and the same from run to run.
+    """
+    from fugue_tpu_torch.ops import kernels as K
+
+    eps32 = torch.finfo(torch.float32).eps
+    rows = {}
+    for n in (N_PARTICLES, 1 << 24, 3 * 8192 + 17):
+        for kind, x in _lse_inputs(n, seed=n % 1000).items():
+            k, p, r = K.plogsumexp(x), K.logsumexp_ref(x), K.logsumexp_ref(x.double())
+            check(k.dtype == torch.float32 and k.dim() == 0, f"lse output {k.dtype} {k.shape}")
+            check(torch.equal(K.plogsumexp(x), k), f"lse not deterministic at {n} {kind}")
+            row = {"phase": "smc_kernels", "kernel": "logsumexp", "n": n, "input": kind,
+                   "kernel_value": k.item(), "plain_value": p.item(), "f64_value": r.item()}
+            if math.isfinite(r.item()):
+                ke, pe = abs(k.double().item() - r.item()), abs(p.double().item() - r.item())
+                tol = max(pe, eps32 * abs(r.item()))
+                row.update(kernel_vs_f64=ke, plain_vs_f64=pe, tolerance=tol,
+                           kernel_vs_plain=abs(k.item() - p.item()))
+                check(ke <= tol, f"lse at {n} {kind}: |kernel - f64| {ke} > {tol}")
+            else:
+                check(k.item() == r.item() == p.item(), f"lse at {n} {kind}: {k} {p} {r}")
+                row["kernel_vs_plain"] = 0.0
+            if kind == "normal_x10" and n in (N_PARTICLES, 1 << 24):
+                n_bytes, n_ops = 4 * n + 4, 4 * n  # x read once; sub, exp, add, compare
+                row.update(kernel_ms=device_ms(lambda: K.plogsumexp(x)),
+                           plain_ms=device_ms(lambda: K.logsumexp_ref(x)),
+                           library_ms=device_ms(lambda: torch.logsumexp(x, 0)))
+                row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops)
+                rows[("lse", n)] = row
+            emit(row)
+    for special, want in ((math.nan, "nan"), (math.inf, "inf")):
+        x = torch.zeros(N_PARTICLES, device="cuda")
+        x[7] = special
+        got = K.plogsumexp(x).item()
+        check((math.isnan(got) if want == "nan" else got == math.inf), f"lse of a {want} input: {got}")
+    x64 = 10.0 * torch.randn(3 * 8192 + 17, device="cuda", dtype=torch.float64)
+    rel = abs(K.plogsumexp(x64).item() - K.logsumexp_ref(x64).item()) / abs(K.logsumexp_ref(x64).item())
+    check(rel <= 1e-12, f"lse float64 kernel vs plain: {rel}")
+    emit({"phase": "smc_kernels", "kernel": "logsumexp", "dtype": "float64", "max_rel_err": rel})
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    # the JAX package's contract at 2^17 float32 (tests/test_pallas_kernels.py)
+    n = N_PARTICLES
+    logits = np.random.default_rng(7).normal(size=n) * 4.0
+    lw32 = torch.as_tensor(logits, dtype=torch.float32, device="cuda")
+    for u0v in (torch.rand((), generator=g, device="cuda").item(), 0.0, 1.0 - 2.0**-24):
+        u0 = torch.tensor(u0v, dtype=torch.float32, device="cuda")
+        got = K.systematic_resample_from_u0(lw32, u0)
+        _check_indices(got, n, f"resample f32 u0={u0v}")
+        check(torch.equal(got, K.systematic_resample_from_u0(lw32, u0)),
+              f"resample not deterministic, u0={u0v}")
+        ref = torch.as_tensor(_exact_systematic(logits, float(u0.item())), device="cuda")
+        plain = K.systematic_resample_ref(u0, torch.exp(lw32 - K.logsumexp_ref(lw32)))
+        floor = (plain - ref).abs().max().item()
+        dev = (got - ref).abs()
+        row = {"phase": "smc_kernels", "kernel": "systematic_resample", "n": n, "dtype": "float32",
+               "u0": u0v, "max_dev_vs_f64": dev.max().item(), "plain_max_dev_vs_f64": floor,
+               "frac_differ": (dev > 0).float().mean().item(),
+               "kernel_vs_plain": (got - plain).abs().max().item(),
+               "tolerance": "max dev <= max(4, 2 * plain's), < 2% differ"}
+        check(row["max_dev_vs_f64"] <= max(4, 2 * floor) and row["frac_differ"] < 0.02,
+              f"resample f32 contract: {row}")
+        emit(row)
+    # times at the weights a ladder stage resamples: ESS about N/2
+    lw_main = torch.as_tensor(np.random.default_rng(8).normal(size=n) * 0.83,
+                              dtype=torch.float32, device="cuda")
+    u0 = torch.rand((), generator=g, device="cuda")
+    got = K.systematic_resample_from_u0(lw_main, u0)
+    _check_indices(got, n, "resample f32, ESS about N/2")
+
+    def plain_fn():
+        return K.systematic_resample_ref(u0, torch.exp(lw_main - K.logsumexp_ref(lw_main)))
+
+    row = {"phase": "smc_kernels", "kernel": "systematic_resample", "n": n, "dtype": "float32",
+           "weights": "normal x 0.83 (ESS about N/2)",
+           "kernel_vs_plain": (got - plain_fn()).abs().max().item(),
+           "kernel_ms": device_ms(lambda: K.systematic_resample_from_u0(lw_main, u0)),
+           "plain_ms": device_ms(plain_fn), "library_ms": None}
+    # lw read once, the int64 indices written once; per element an exp, a
+    # subtraction, a scan add and the count's four operations
+    row["bound_ms"], row["bound_by"] = bound_ms(12 * n + 4, 7 * n)
+    rows[("resample", n)] = row
+    emit(row)
+    # float64 against the plain float64 version, at 2^20 and a ragged size
+    for n in (1 << 20, 5 * 2048 + 17, N_PARTICLES):
+        lw64 = 3.0 * torch.randn(n, generator=g, device="cuda", dtype=torch.float64)
+        for u0v in (0.0, 0.37, 1.0 - 2.0**-52):
+            u0 = torch.tensor(u0v, dtype=torch.float64, device="cuda")
+            got = K.systematic_resample_from_u0(lw64, u0)
+            _check_indices(got, n, f"resample f64 n={n} u0={u0v}")
+            plain = K.systematic_resample_ref(u0, torch.exp(lw64 - K.logsumexp_ref(lw64)))
+            dev = (got - plain).abs()
+            check(dev.max().item() <= 1 and (dev > 0).float().mean().item() < 1e-3,
+                  f"resample f64 n={n} u0={u0v}: max dev {dev.max().item()}, "
+                  f"{(dev > 0).float().mean().item()} differ")
+            got32 = K.systematic_resample_from_u0(lw64.float(), u0.float())
+            _check_indices(got32, n, f"resample f32 n={n} u0={u0v}")
+            check(torch.equal(got32, K.systematic_resample_from_u0(lw64.float(), u0.float())),
+                  f"resample f32 not deterministic at n={n}")
+        emit({"phase": "smc_kernels", "kernel": "systematic_resample", "n": n, "dtype": "float64",
+              "max_dev_vs_plain": dev.max().item(), "frac_differ": (dev > 0).float().mean().item()})
+    # degenerate weights: one particle takes every slot (one tile writes all)
+    lw = torch.full((N_PARTICLES,), -math.inf, device="cuda")
+    lw[12345] = 0.0
+    got = K.systematic_resample_from_u0(lw, torch.tensor(0.5, device="cuda"))
+    check(bool((got == 12345).all()), "resample of one live particle")
+    lw[100000] = 0.0  # two live particles share the slots equally
+    got = K.systematic_resample_from_u0(lw, torch.tensor(0.5, device="cuda"))
+    check(int((got == 12345).sum()) == N_PARTICLES // 2 and int((got == 100000).sum()) == N_PARTICLES // 2,
+          "resample of two live particles")
+    return rows
+
+
+def _smc_run(name, staged, n, seed, config):
+    import fugue_tpu_torch as ftt
+    from fugue_tpu_torch.ops import kernels as K
+
+    torch.cuda.synchronize()
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    res = ftt.adaptive_smc(seed, n, staged=staged, config=config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    mu = res.particles["mu"]
+    check(mu.shape == (n,) and bool(torch.isfinite(mu).all()), f"{name}: mu {tuple(mu.shape)} or non-finite")
+    check(abs(res.weights.double().sum().item() - 1.0) < 1e-4, f"{name}: weights do not sum to 1")
+    mean = res.posterior_mean("mu").item()
+    sd = math.sqrt(res.posterior_var("mu").item())
+    row = {"phase": "smc", "run": name, "particles": n, "dtype": str(mu.dtype),
+           "rejuvenation": config.rejuvenation, "rejuvenation_steps": config.rejuvenation_steps,
+           "wall_s": wall, "particle_stages_per_s": n * res.n_stages / wall,
+           "stages": res.n_stages, "beta": res.beta, "log_evidence": res.log_evidence,
+           "ess": res.ess, "mu_mean": mean, "mu_sd": sd, "launches": launches}
+    check(res.converged and res.beta == 1.0, f"{name}: not converged, beta {res.beta}")
+    # No terminal resample: every stage but the last (beta = 1) resampled.
+    # logsumexp per stage: 2 in _next_beta's ESS, 1 to normalise, 1 for the
+    # evidence increment, and 1 inside each resample (its float64 lse); at
+    # the end 1 to normalise and 2 for the ESS: 5 * stages + 2 with the
+    # last stage's resample absent.
+    s = res.n_stages
+    check(launches["resample"] == s - 1, f"{name}: {launches['resample']} resample launches, {s} stages")
+    check(launches["lse"] == 5 * s + 2, f"{name}: {launches['lse']} logsumexp launches, want {5 * s + 2}")
+    return row
+
+
+def phase_smc():
+    import fugue_tpu_torch as ftt
+
+    launches = {"lse": 0, "resample": 0}
+    staged = ftt.stage(hierarchical_model("cuda"), device="cuda")
+    runs = (("hierarchical_mh", "mh", 3, ftt.SMCConfig(rejuvenation_steps=3)),
+            ("hierarchical_hmc", "hmc", 13,
+             ftt.SMCConfig(rejuvenation="hmc", rejuvenation_steps=1, hmc_leapfrog=16)))
+    for name, mode, seed, cfg in runs:
+        row = _smc_run(name, staged, N_PARTICLES, seed, cfg)
+        ref = SMC_MU[mode]
+        mcse = math.hypot(ref["MU_RUN_SD"], ref["MU_RUN_SD"] / math.sqrt(SMC_MU_RUNS))
+        row.update(mu_ref=ref["MU_MEAN"], mu_mcse=mcse, mu_z=(row["mu_mean"] - ref["MU_MEAN"]) / mcse)
+        emit(row)
+        check(abs(row["mu_z"]) < 5.0, f"{name}: mu mean {row['mu_mean']} is {row['mu_z']:.2f} MC-SE "
+              f"from {ref['MU_MEAN']}")
+        for k in launches:
+            launches[k] += row["launches"][k]
+    staged_c = ftt.stage(conjugate_evidence_model("cuda"), device="cuda")
+    row = _smc_run("conjugate", staged_c, 8192, 33, ftt.SMCConfig(rejuvenation_steps=3))
+    exact = conjugate_log_evidence()
+    row.update(log_evidence_exact=exact, log_evidence_err=row["log_evidence"] - exact)
+    emit(row)
+    check(abs(row["log_evidence_err"]) < 0.1, f"conjugate log Z {row['log_evidence']} vs {exact}")
+    for k in launches:
+        launches[k] += row["launches"][k]
+    return launches
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -381,7 +703,7 @@ def main(argv=None) -> int:
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     import fugue_tpu_torch  # noqa: F401  (fails outside a checkout)
 
-    kernel_rows = launches = None
+    kernel_rows = launches = smc_rows = smc_launches = None
     if "build" in phases:
         phase_build()
     if "kernel" in phases:
@@ -390,19 +712,31 @@ def main(argv=None) -> int:
         phase_eight_schools()
     if "gaussian_plate" in phases:
         launches = phase_gaussian_plate()
+    if "smc_kernels" in phases:
+        smc_rows = phase_smc_kernels()
+    if "smc" in phases:
+        smc_launches = phase_smc()
 
     print(card_line(), flush=True)
     if set(phases) != set(PHASES):
         emit({"partial": phases})
         return 0
+
+    def entry(name, key, source, row, n_launches):
+        return {"name": name, "route": "cuda", "source": f"fugue_tpu_torch/csrc/{source}.cu",
+                "replaces": REPLACES[key], "launches": n_launches,
+                "max_abs_err": row["kernel_vs_plain"], "ms": row["kernel_ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+
     emit({"kernels": [
-            {"name": f"normal_loglik_sum_{d}", "route": "cuda", "source": SOURCE,
-             "replaces": REPLACES[d], "launches": launches[d],
-             "max_abs_err": kernel_rows[(*MAIN_SHAPE, d)]["kernel_vs_plain"],
-             "ms": kernel_rows[(*MAIN_SHAPE, d)]["kernel_ms"],
-             "plain_ms": kernel_rows[(*MAIN_SHAPE, d)]["plain_ms"]}
-            for d in ("fwd", "bwd")
-        ]})
+        *(entry(f"normal_loglik_sum_{d}", d, "normal_loglik_sum",
+                kernel_rows[(*MAIN_SHAPE, d)], launches[d]) for d in ("fwd", "bwd")),
+        entry("logsumexp", "lse", "logsumexp", smc_rows[("lse", N_PARTICLES)],
+              smc_launches["lse"]),
+        entry("systematic_resample", "resample", "systematic_resample",
+              smc_rows[("resample", N_PARTICLES)], smc_launches["resample"]),
+    ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

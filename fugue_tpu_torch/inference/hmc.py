@@ -464,7 +464,7 @@ def hmc_chain(
     n_chains: int = 1,
     model_args: tuple = (),
     staged: Optional[StagedModel] = None,
-    device="cpu",
+    device="cuda",
     init_position: Optional[Any] = None,
     init_jitter: float = 0.05,
 ) -> HMCResult:

@@ -1,18 +1,21 @@
-"""MCMC estimation utilities: autocovariance, ESS and R-hat.
+"""MCMC estimation utilities: autocovariance, ESS, R-hat and adaptation.
 
 The port of ``autocovariance``, ``_geyer_tau``, ``ess``, ``ess_multichain``,
-``r_hat`` and ``split_r_hat`` from ``fugue_tpu/inference/mcmc_utils.py``.
-Every estimator is batched over leading dimensions; autocovariances for all
-lags come from one ``torch.fft`` transform. Rank-normalized R-hat, Geweke
-and the adaptation state wait for a later slice.
+``r_hat``, ``split_r_hat``, ``AdaptationState`` and ``adapt_update`` from
+``fugue_tpu/inference/mcmc_utils.py``. Every estimator is batched over
+leading dimensions; autocovariances for all lags come from one ``torch.fft``
+transform. Rank-normalized R-hat and Geweke wait for a later slice.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from dataclasses import dataclass
+from typing import Any, Optional
 
 import torch
+
+from .. import settings
 
 MAX_LAG = 2048  # reference lag cap
 
@@ -104,3 +107,59 @@ def split_r_hat(chains):
     half = n // 2
     split = torch.cat([x[..., :half], x[..., n - half : n]], dim=-2)
     return r_hat(split)
+
+
+# ---------------------------------------------------------------------------
+# Diminishing adaptation
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class AdaptationState:
+    """Per-site proposal-scale adaptation state: one slot per site, or per
+    (chain, site) when batched. Log-scales move toward a target acceptance
+    rate with a Robbins-Monro decayed step (diminishing adaptation)."""
+
+    log_scale: Any
+    t: Any  # adaptation step count (per slot)
+
+    @staticmethod
+    def init(n_sites: int, initial_scale: float = 1.0, batch_shape=(), *,
+             dtype=None, device=None) -> "AdaptationState":
+        shape = tuple(batch_shape) + (n_sites,)
+        dtype = dtype or settings.real_dtype()
+        return AdaptationState(
+            log_scale=torch.full(shape, math.log(initial_scale), dtype=dtype, device=device),
+            t=torch.zeros(shape, dtype=dtype, device=device),
+        )
+
+    def scale(self):
+        return torch.exp(self.log_scale)
+
+
+def adapt_update(
+    state: AdaptationState,
+    site_mask,
+    accepted,
+    target: float = 0.44,
+    decay: float = 0.6,
+    max_log_step: float = 1.0,
+    frozen: bool = False,
+) -> AdaptationState:
+    """One diminishing-adaptation update.
+
+    ``site_mask``: one-hot (or boolean) over sites selecting the slot(s) that
+    moved; ``accepted``: the acceptance outcome, per chain or shared.
+    log-scale += step * (acc - target) with step = min(max_log_step,
+    t^-decay). ``frozen=True`` is the post-warmup no-op.
+    """
+    if frozen:
+        return state
+    ls = state.log_scale
+    mask = torch.as_tensor(site_mask, dtype=ls.dtype, device=ls.device)
+    acc = torch.as_tensor(accepted, dtype=ls.dtype, device=ls.device)
+    if acc.dim() == mask.dim() - 1:
+        acc = acc[..., None]  # per-chain acceptance -> broadcast over sites
+    t_new = state.t + mask
+    step = torch.clamp(torch.pow(torch.clamp(t_new, min=1.0), -decay), max=max_log_step)
+    return AdaptationState(log_scale=ls + mask * step * (acc - target), t=t_new)

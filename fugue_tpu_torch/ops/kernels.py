@@ -1,8 +1,14 @@
-"""The Gaussian-plate log-likelihood kernel and its plain version.
+"""The port's CUDA kernels, each beside its plain PyTorch version.
 
-The port of ``pnormal_loglik_sum`` from ``fugue_tpu/ops/pallas_kernels.py``
-(forward ``_nll_fwd_kernel``, backward ``_nll_bwd_kernel``): the force term
-of models whose likelihood is ``factor(pnormal_loglik_sum(y, mu, sigma))``.
+The ports of the TPU kernels in ``fugue_tpu/ops/pallas_kernels.py``:
+
+- ``pnormal_loglik_sum`` (forward ``_nll_fwd_kernel``, backward
+  ``_nll_bwd_kernel``; ``csrc/normal_loglik_sum.cu``): the force term of
+  models whose likelihood is ``factor(pnormal_loglik_sum(y, mu, sigma))``;
+- ``plogsumexp`` (``_plogsumexp_kernel``; ``csrc/logsumexp.cu``): SMC's
+  weight normalisation, evidence and ESS reductions;
+- ``psystematic_resample`` (``_presample_kernel``;
+  ``csrc/systematic_resample.cu``): SMC's ancestor draw.
 
 The TPU kernel ran once per chain under ``vmap``. Here the kernel takes the
 chain batch natively: ``y`` (N,) shared by all chains, ``mu`` and ``sigma``
@@ -11,9 +17,9 @@ whose ``vmap`` rule turns a batch of per-chain calls into one batched
 launch, so ``vmap(grad_and_value(potential))`` over C chains launches the
 forward kernel once and the backward kernel once.
 
-A CUDA tensor launches the kernel in ``csrc/normal_loglik_sum.cu`` or
-raises; a CPU tensor takes the plain PyTorch version beside it. There is no
-fallback, size threshold or switch. ``LAUNCHES`` counts the kernel launches.
+A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
+PyTorch version beside it. There is no fallback, size threshold or switch.
+``LAUNCHES`` counts the kernel launches, one per call of a C entry point.
 """
 
 from __future__ import annotations
@@ -27,12 +33,22 @@ import torch
 from . import _build
 
 _LOG_2PI = math.log(2.0 * math.pi)
-_SOURCE = "normal_loglik_sum"
-_THREADS = 256  # kThreads in the .cu source
+_NLL, _LSE, _RESAMPLE = "normal_loglik_sum", "logsumexp", "systematic_resample"
+_THREADS = 256  # kThreads in the .cu sources
 _MAX_CHAINS = 2**31 - 1  # gridDim.x; blocks per chain go on gridDim.y
+_MAX_LSE_BLOCKS = 1024  # partial pairs combined by logsumexp's second pass
+_FLOATS = (torch.float32, torch.float64)
 
 # kernel launches, one per call of each C entry point
-LAUNCHES = {"fwd": 0, "bwd": 0}
+LAUNCHES = {"fwd": 0, "bwd": 0, "lse": 0, "resample": 0}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int64
+_SIGNATURES = {
+    _NLL: {"fugue_nll_fwd_{}": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+           "fugue_nll_bwd_{}": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
+    _LSE: {"fugue_lse_{}": [_P, _P, _P, _P, _I, _I, _P]},
+    _RESAMPLE: {"fugue_resample_{}": [_P, _P, _P, _P, _P, _I, _P]},
+}
 
 
 # ---------------------------------------------------------------------------
@@ -60,17 +76,29 @@ def normal_loglik_sum_grad_ref(y, mu, sigma):
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(_SOURCE)
-    p, i = ctypes.c_void_p, ctypes.c_int64
-    for dt in ("f32", "f64"):
-        fwd = getattr(lib, f"fugue_nll_fwd_{dt}")
-        fwd.argtypes = [p, p, p, p, p, i, i, i, p]
-        fwd.restype = ctypes.c_int
-        bwd = getattr(lib, f"fugue_nll_bwd_{dt}")
-        bwd.argtypes = [p, p, p, p, p, p, i, i, i, p]
-        bwd.restype = ctypes.c_int
+def _lib(source: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<source>.cu`` with its C
+    signatures set."""
+    lib = _build.load(source)
+    for pattern, argtypes in _SIGNATURES[source].items():
+        for dt in ("f32", "f64"):
+            fn = getattr(lib, pattern.format(dt))
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
+
+
+def _entry(source: str, pattern: str, dtype):
+    return getattr(_lib(source), pattern.format("f32" if dtype == torch.float32 else "f64"))
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
 
 
 def _n_blocks(n: int, n_chains: int) -> int:
@@ -84,7 +112,7 @@ def _check_launch(y, mu, sigma) -> None:
     for name, t in (("y", y), ("mu", mu), ("sigma", sigma)):
         if t.device != y.device:
             raise ValueError(f"{name} is on {t.device}, y on {y.device}")
-        if t.dtype not in (torch.float32, torch.float64) or t.dtype != y.dtype:
+        if t.dtype not in _FLOATS or t.dtype != y.dtype:
             raise TypeError(
                 f"{name} has dtype {t.dtype}; the kernel takes float32 or "
                 f"float64, the same for y, mu and sigma (y is {y.dtype})"
@@ -104,14 +132,11 @@ def _launch(direction: str, y, mu, sigma):
     n_scratch = 1 if direction == "fwd" else 2
     scratch = torch.empty((n_scratch, n_chains, nb), dtype=torch.float64, device=y.device)
     outs = [torch.empty_like(mu) for _ in range(n_scratch)]
-    dt = "f32" if y.dtype == torch.float32 else "f64"
-    fn = getattr(_lib(), f"fugue_nll_{direction}_{dt}")
+    fn = _entry(_NLL, f"fugue_nll_{direction}_{{}}", y.dtype)
     with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream(y.device).cuda_stream
         rc = fn(y.data_ptr(), mu.data_ptr(), sigma.data_ptr(), scratch.data_ptr(),
-                *[o.data_ptr() for o in outs], n, n_chains, nb, stream)
-    if rc != 0:
-        raise RuntimeError(f"normal_loglik_sum {direction} launch failed: CUDA error {rc}")
+                *[o.data_ptr() for o in outs], n, n_chains, nb, _stream(y.device))
+    _raise_on(rc, f"normal_loglik_sum {direction}")
     LAUNCHES[direction] += 1
     return outs
 
@@ -230,3 +255,125 @@ def pnormal_loglik_sum_grad(y, mu, sigma):
     y = _flat(y)
     mu, sigma = torch.broadcast_tensors(_as_param(mu, y), _as_param(sigma, y))
     return _NormalLoglikSumGrad.apply(y, mu, sigma)
+
+
+# ---------------------------------------------------------------------------
+# log-sum-exp
+# ---------------------------------------------------------------------------
+
+
+def logsumexp_ref(x):
+    """log Σ exp(x) over all elements (the port of ``logsumexp_xla``): NaN
+    propagates, +inf gives +inf, all -inf gives -inf."""
+    m = torch.amax(x)
+    finite = torch.isfinite(m)
+    m_safe = torch.where(finite, m, torch.zeros_like(m))
+    out = m_safe + torch.log(torch.sum(torch.exp(x - m_safe)))
+    return torch.where(finite, out, m)
+
+
+def _check_vector(name: str, x) -> None:
+    if x.dtype not in _FLOATS:
+        raise TypeError(f"{name} has dtype {x.dtype}; the kernel takes float32 or float64")
+    if x.dim() != 1 or not x.is_contiguous():
+        raise ValueError(f"{name} must be 1-D and contiguous, got shape {tuple(x.shape)}")
+    if x.numel() == 0:
+        raise ValueError(f"{name} is empty")
+
+
+def _lse_blocks(n: int) -> int:
+    """First-pass blocks: at least 8 elements per thread, at most
+    ``_MAX_LSE_BLOCKS`` partial pairs for the one-block second pass."""
+    return max(1, min(_MAX_LSE_BLOCKS, -(-n // (_THREADS * 8))))
+
+
+def _launch_lse(x, out_dtype):
+    """The logsumexp kernel on a checked CUDA vector; a 0-dim result in
+    ``out_dtype`` (x's dtype, or float64 for the resampling kernel)."""
+    _check_vector("x", x)
+    n = x.numel()
+    nb = _lse_blocks(n)
+    if out_dtype not in (x.dtype, torch.float64):
+        raise TypeError(f"logsumexp writes {x.dtype} or float64, not {out_dtype}")
+    scratch = torch.empty(3 * nb, dtype=torch.float64, device=x.device)
+    out = torch.empty((), dtype=out_dtype, device=x.device)
+    as_t, as_64 = (None, out.data_ptr()) if out_dtype == torch.float64 else (out.data_ptr(), None)
+    fn = _entry(_LSE, "fugue_lse_{}", x.dtype)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), scratch.data_ptr(), as_t, as_64, n, nb, _stream(x.device))
+    _raise_on(rc, "logsumexp")
+    LAUNCHES["lse"] += 1
+    return out
+
+
+def plogsumexp(x):
+    """log Σ exp(x) over all elements of a contiguous float tensor, as a
+    0-dim tensor of its dtype: the CUDA kernel for a CUDA tensor, the plain
+    version for a CPU tensor."""
+    x = x.reshape(-1) if x.is_contiguous() else x
+    if x.is_cuda:
+        return _launch_lse(x, x.dtype)
+    if x.device.type == "cpu":
+        _check_vector("x", x)
+        return logsumexp_ref(x)
+    raise ValueError(f"plogsumexp runs on CUDA or CPU tensors, got {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# systematic resampling
+# ---------------------------------------------------------------------------
+
+
+def systematic_resample_ref(u0, weights):
+    """Ancestor indices (int64) of systematic resampling with comb offset
+    ``u0`` (the port of ``systematic_resample_xla``): normalised cumsum,
+    then ``searchsorted`` of the comb (k + u0) / n."""
+    n = weights.shape[-1]
+    cdf = torch.cumsum(weights, dim=-1)
+    cdf = cdf / cdf[-1]
+    us = (torch.arange(n, dtype=weights.dtype, device=weights.device) + u0) / n
+    return torch.clamp(torch.searchsorted(cdf, us, side="left"), 0, n - 1)
+
+
+def _launch_resample(log_weights, lse64, u0):
+    _check_vector("log_weights", log_weights)
+    n = log_weights.numel()
+    if lse64.dtype != torch.float64 or u0.dtype != log_weights.dtype:
+        raise TypeError("the resampling kernel takes a float64 lse and u0 in the weights' dtype")
+    for name, t in (("lse", lse64), ("u0", u0)):
+        if t.device != log_weights.device or t.numel() != 1:
+            raise ValueError(f"{name} must be one element on {log_weights.device}")
+    tile = _THREADS * 8  # kTile in the .cu source
+    n_tiles = -(-n // tile)
+    scratch = torch.empty(2 * n_tiles + 1, dtype=torch.int64, device=log_weights.device)
+    idx = torch.empty(n, dtype=torch.int64, device=log_weights.device)
+    fn = _entry(_RESAMPLE, "fugue_resample_{}", log_weights.dtype)
+    with torch.cuda.device(log_weights.device):
+        rc = fn(log_weights.data_ptr(), lse64.data_ptr(), u0.data_ptr(), scratch.data_ptr(),
+                idx.data_ptr(), n, _stream(log_weights.device))
+    _raise_on(rc, "systematic_resample")
+    LAUNCHES["resample"] += 1
+    return idx
+
+
+def systematic_resample_from_u0(log_weights, u0):
+    """Systematic-resampling ancestors of a 1-D log-weight vector with a
+    given comb offset ``u0`` (0-dim, the weights' dtype and device). On a
+    CUDA tensor: the logsumexp kernel (float64 output), then the resampling
+    kernel."""
+    if log_weights.is_cuda:
+        return _launch_resample(log_weights, _launch_lse(log_weights, torch.float64), u0)
+    if log_weights.device.type == "cpu":
+        _check_vector("log_weights", log_weights)
+        w = torch.exp(log_weights - logsumexp_ref(log_weights))
+        return systematic_resample_ref(u0, w)
+    raise ValueError(f"psystematic_resample runs on CUDA or CPU tensors, got {log_weights.device}")
+
+
+def psystematic_resample(generator: torch.Generator, log_weights):
+    """Ancestor indices (int64, (N,)) of systematic resampling of a 1-D
+    log-weight vector. The comb offset u0 is the one draw taken from
+    ``generator``; nothing random runs inside the kernel."""
+    u0 = torch.rand((), generator=generator, device=log_weights.device,
+                    dtype=log_weights.dtype)
+    return systematic_resample_from_u0(log_weights, u0)

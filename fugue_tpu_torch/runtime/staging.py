@@ -10,7 +10,12 @@ flat unconstrained position ``z``:
   (d,). The HMC drive evaluates it for a whole batch of chains at once as
   ``torch.func.vmap(torch.func.grad_and_value(potential))``, so the Python
   model runs once per batch, never once per chain;
-- ``log_density_parts`` keeps the reference's three-accumulator split.
+- ``log_density_parts`` keeps the reference's three-accumulator split;
+- ``sample_prior_batch(seed, n)`` draws n particles in ONE model run under
+  ``vmap(..., randomness="different")``, for SMC's stage 0;
+- ``flatten_constrained`` / ``unflatten_constrained`` map latents to the flat
+  CONSTRAINED layout that single-site MH proposes in, with any leading
+  batch dimensions.
 
 The model must have static structure: its set of addresses may not depend
 on sampled values. There is no ``jit`` here, so nothing is cached per
@@ -26,6 +31,8 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
+
+from torch.func import vmap
 
 from .. import settings
 from ..core.distributions import Support
@@ -70,7 +77,7 @@ class StagedModel:
     """A model over a fixed site table, with the device its tensors live on."""
 
     def __init__(self, model_fn: Callable, args: tuple = (), kwargs: dict = None,
-                 *, device="cpu", discovery_seed: int = 0):
+                 *, device="cuda", discovery_seed: int = 0):
         self.model_fn = model_fn
         self.args = args
         self.kwargs = kwargs or {}
@@ -101,16 +108,21 @@ class StagedModel:
                 )
         self.sites: List[Site] = sites
         self.site_index: Dict[str, int] = {s.address: i for i, s in enumerate(sites)}
+        self.continuous_sites: List[Site] = list(sites)
+        self.discrete_sites: List[Site] = []  # no discrete distribution yet
         self.observed_addresses = sorted(
             a for a, c in trace.choices.items() if c.is_observed
         )
-        # flat unconstrained layout (z), address-sorted; the transforms
-        # ported so far keep each site's shape
-        self._z_offsets: Dict[str, Tuple[int, int]] = {}
+        # flat constrained layout over continuous sites, address-sorted
+        self._offsets: Dict[str, Tuple[int, int]] = {}
         off = 0
-        for s in self.sites:
-            self._z_offsets[s.address] = (off, off + s.size)
+        for s in self.continuous_sites:
+            self._offsets[s.address] = (off, off + s.size)
             off += s.size
+        self.constrained_dim = off
+        # flat unconstrained layout (z); the transforms ported so far keep
+        # each site's shape, so it matches the constrained one
+        self._z_offsets: Dict[str, Tuple[int, int]] = dict(self._offsets)
         self.dim = off
 
     # -- density ------------------------------------------------------------
@@ -120,6 +132,16 @@ class StagedModel:
         _, trace = self._run(PriorHandler(seed, self.device))
         return trace.latents()
 
+    def sample_prior_batch(self, seed: int, n: int) -> Dict[str, Any]:
+        """``n`` independent prior draws in ONE model run: each latent gets
+        a leading (n,) dimension. Every site's generator draws its n values
+        at once (``vmap`` with ``randomness="different"``), so the batch is
+        a function of ``seed`` and ``n`` alone."""
+        def one(_):
+            return self.sample_prior(seed)
+
+        return vmap(one, randomness="different")(torch.zeros(n, device=self.device))
+
     def log_density_parts(self, latents: Dict[str, Any]) -> LogDensityParts:
         """Replay with the given latent values; score everything."""
         _, trace = self._run(ValuesHandler(latents))
@@ -127,6 +149,27 @@ class StagedModel:
 
     def log_joint(self, latents: Dict[str, Any]):
         return self.log_density_parts(latents).total()
+
+    # -- flat constrained layout (single-site MH proposes here) ------------
+
+    def flatten_constrained(self, latents: Dict[str, Any]):
+        """Latents → (..., constrained_dim) in ``settings.real_dtype()``;
+        leading dimensions beyond each site's shape are kept."""
+        dt = settings.real_dtype()
+        parts = []
+        for s in self.continuous_sites:
+            v = torch.as_tensor(latents[s.address]).to(dt)
+            parts.append(v.reshape(*v.shape[: v.dim() - len(s.shape)], s.size))
+        if not parts:
+            return torch.zeros((0,), dtype=dt, device=self.device)
+        return torch.cat(parts, dim=-1)
+
+    def unflatten_constrained(self, vec) -> Dict[str, Any]:
+        out = {}
+        for s in self.continuous_sites:
+            lo, hi = self._offsets[s.address]
+            out[s.address] = vec[..., lo:hi].reshape(*vec.shape[:-1], *s.shape)
+        return out
 
     # -- flat unconstrained parameterization --------------------------------
 
@@ -192,7 +235,7 @@ class StagedModel:
         return self.sites[i]
 
 
-def stage(model_fn: Callable, *args, device="cpu", discovery_seed: int = 0,
+def stage(model_fn: Callable, *args, device="cuda", discovery_seed: int = 0,
           **kwargs) -> StagedModel:
     """Stage a model function whose tensors live on ``device``."""
     return StagedModel(model_fn, args, kwargs, device=device,

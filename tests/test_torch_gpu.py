@@ -1,4 +1,4 @@
-"""The PyTorch port's HMC path on a CUDA device.
+"""The PyTorch port's HMC and SMC paths on a CUDA device.
 
 Every test here is marked ``gpu`` and skips without a card. The file imports
 no JAX, so it runs on a machine with a card and no JAX, past the suite's
@@ -6,9 +6,16 @@ conftest (which imports JAX):
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
-Each test compares a CUDA run with the same computation on the CPU in
+The HMC tests compare a CUDA run with the same computation on the CPU in
 float64, where the two differ only in summation order (tolerance 1e-10).
+The SMC kernels are held against their plain versions on the card:
+logsumexp to 1e-12 relative in float64 and within the plain float32
+version's error of float64 in float32; systematic resampling in float64 to
+a deviation of at most 1 on fewer than 0.1% of slots, sorted, in range and
+the same run to run.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -16,7 +23,7 @@ import torch
 from torch.func import grad_and_value, vmap
 
 import fugue_tpu_torch as ftt
-from chip_smoke import eight_schools_model, plate_model
+from chip_smoke import conjugate_evidence_model, eight_schools_model, plate_model
 from fugue_tpu_torch import settings
 from fugue_tpu_torch.inference import hmc
 from fugue_tpu_torch.ops import kernels as K
@@ -90,7 +97,8 @@ def test_one_launch_per_batched_gradient():
     before = dict(K.LAUNCHES)
     g, u = vmap(grad_and_value(staged.potential))(q)
     torch.cuda.synchronize()
-    assert K.LAUNCHES == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    assert {k: K.LAUNCHES[k] for k in ("fwd", "bwd")} == {"fwd": before["fwd"] + 1,
+                                                         "bwd": before["bwd"] + 1}
     assert g.shape == (32, 2) and bool(torch.isfinite(u).all())
 
 
@@ -111,3 +119,66 @@ def test_short_chain_on_cuda():
     mu = res.samples["mu"]
     assert mu.is_cuda and mu.shape == (64, 60) and bool(torch.isfinite(mu).all())
     assert res.final_positions.is_cuda and 0.0 < res.step_size < 10.0
+
+
+@pytest.mark.parametrize("n", [1, 1000, 131072, 3 * 8192 + 17])
+def test_logsumexp_kernel_matches_plain(n):
+    g = torch.Generator(device="cuda").manual_seed(n)
+    x64 = 10.0 * torch.randn(n, generator=g, device="cuda", dtype=torch.float64)
+    k, p = K.plogsumexp(x64), K.logsumexp_ref(x64)
+    assert k.dtype == torch.float64 and abs(k.item() - p.item()) <= 1e-12 * abs(p.item())
+    x = x64.float()
+    k32, p32, r = K.plogsumexp(x), K.logsumexp_ref(x), K.logsumexp_ref(x.double())
+    tol = max(abs(p32.item() - r.item()), torch.finfo(torch.float32).eps * abs(r.item()))
+    assert abs(k32.double().item() - r.item()) <= tol
+    assert torch.equal(K.plogsumexp(x), k32)
+
+
+def test_logsumexp_kernel_special_values():
+    x = torch.full((5000,), -math.inf, device="cuda")
+    assert K.plogsumexp(x).item() == -math.inf
+    x[4321] = 2.5
+    assert K.plogsumexp(x).item() == 2.5
+    x[17] = math.inf
+    assert K.plogsumexp(x).item() == math.inf
+    x[18] = math.nan
+    assert math.isnan(K.plogsumexp(x).item())
+
+
+@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 131072 + 5])
+@pytest.mark.parametrize("u0", [0.0, 0.5, 1.0 - 2.0**-52])
+def test_resample_kernel_matches_plain(n, u0):
+    g = torch.Generator(device="cuda").manual_seed(n)
+    lw = 3.0 * torch.randn(n, generator=g, device="cuda", dtype=torch.float64)
+    u = torch.tensor(u0, dtype=torch.float64, device="cuda")
+    got = K.systematic_resample_from_u0(lw, u)
+    plain = K.systematic_resample_ref(u, torch.exp(lw - K.logsumexp_ref(lw)))
+    dev = (got - plain).abs()
+    assert got.dtype == torch.int64 and got.shape == (n,)
+    assert dev.max().item() <= 1 and (dev > 0).float().mean().item() < 1e-3
+    assert bool((got[1:] >= got[:-1]).all()) and 0 <= got.min() and got.max() < n
+    assert torch.equal(K.systematic_resample_from_u0(lw, u), got)
+
+
+def test_resample_wrapper_raises_instead_of_falling_back():
+    g = torch.Generator(device="cuda")
+    with pytest.raises(TypeError):
+        K.psystematic_resample(g, torch.zeros(8, dtype=torch.int32, device="cuda"))
+    with pytest.raises(ValueError):
+        K.psystematic_resample(g, torch.zeros(2, 8, device="cuda"))
+    with pytest.raises(ValueError):
+        K.psystematic_resample(g, torch.zeros(16, device="cuda")[::2])
+    with pytest.raises(TypeError):  # u0 in another dtype than the weights
+        K.systematic_resample_from_u0(torch.zeros(8, device="cuda"),
+                                      torch.zeros((), dtype=torch.float64, device="cuda"))
+
+
+def test_short_smc_run_goes_through_both_kernels():
+    staged = ftt.stage(conjugate_evidence_model("cuda", torch.float64), device="cuda")
+    before = dict(K.LAUNCHES)
+    res = ftt.adaptive_smc(0, 2048, staged=staged, config=ftt.SMCConfig(rejuvenation_steps=2))
+    torch.cuda.synchronize()
+    s = res.n_stages
+    assert res.converged and res.particles["mu"].is_cuda
+    assert K.LAUNCHES["resample"] - before["resample"] == s - 1
+    assert K.LAUNCHES["lse"] - before["lse"] == 5 * s + 2

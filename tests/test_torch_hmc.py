@@ -229,7 +229,7 @@ def test_short_chain_matches_jax_moments(pair):
 
 
 def test_drive_options():
-    ts = ftt.stage(models.torch_eight_schools())
+    ts = ftt.stage(models.torch_eight_schools(), device="cpu")
     g = torch.Generator().manual_seed(0)
     q = thmc.initial_positions(ts, g, 6, "uniform")
     assert q.shape == (6, ts.dim) and float(q.abs().max()) <= 2.0

@@ -1,14 +1,16 @@
-"""The PyTorch port's slice as a whole, on the CPU.
+"""The PyTorch port's slices as a whole, on the CPU.
 
 - The ``__graft_entry__.entry()`` analog: 32 eight-schools chains from the
   same q0, with the JAX step's own momenta and accept uniforms handed to
   the port, take one batched transition equal to the JAX step (float64,
   tolerance 1e-10).
 - The port imports no JAX: a static walk over its sources with ``ast``.
-- The flat API is the slice's subset of fugue_tpu's.
+- The flat API is the slices' subset of fugue_tpu's.
+- Every entry point runs on the card unless the caller names a device.
 """
 
 import ast
+import inspect
 import pathlib
 
 import jax
@@ -20,7 +22,7 @@ import torch
 import __graft_entry__
 import fugue_tpu as ft
 import fugue_tpu_torch as ftt
-from fugue_tpu_torch import settings
+from fugue_tpu_torch import interop, settings
 from fugue_tpu_torch.interop import hmc_state_from_numpy, tensor_from_numpy
 
 import torch_parity_models as models
@@ -29,7 +31,11 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "fugue_tpu")
 FLAT_API = ("sample", "observe", "factor", "guard", "Normal", "LogNormal", "stage",
             "HMCConfig", "HMCResult", "hmc_chain", "hmc_transition",
-            "print_diagnostics")
+            "print_diagnostics", "SMCConfig", "SMCResult", "adaptive_smc",
+            "importance_reweight")
+ENTRY_POINTS = (ftt.stage, ftt.StagedModel, ftt.hmc_chain, ftt.adaptive_smc,
+                ftt.importance_reweight, interop.tensor_from_numpy,
+                interop.hmc_state_from_numpy, interop.smc_state_from_numpy)
 
 
 @pytest.fixture(autouse=True)
@@ -50,7 +56,7 @@ def test_entry_step_matches_jax():
         return p, jnp.log(jax.random.uniform(k_acc, (), jnp.float64, 1e-38, 1.0))
 
     p, log_u = jax.vmap(noise)(keys)
-    ts = ftt.stage(models.torch_eight_schools())
+    ts = ftt.stage(models.torch_eight_schools(), device="cpu")
     tq, info = ftt.hmc_transition(
         ts.potential, torch.as_tensor(q0), torch.as_tensor(np.array(p)),
         torch.as_tensor(np.array(log_u)), 0.1, 8, torch.ones(ts.dim, dtype=torch.float64),
@@ -86,18 +92,23 @@ def test_flat_api_is_a_subset_of_fugue_tpu():
         assert hasattr(ft, name), name
 
 
+@pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda f: f.__name__)
+def test_entry_points_default_to_the_card(fn):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
 def test_interop_carries_numpy_state():
     rng = np.random.default_rng(0)
     q, im = rng.normal(size=(4, 3)), rng.uniform(0.5, 2.0, 3)
-    st = hmc_state_from_numpy(q, np.float32(0.25), im, dtype=torch.float64)
+    st = hmc_state_from_numpy(q, np.float32(0.25), im, device="cpu", dtype=torch.float64)
     assert st.positions.shape == (4, 3) and st.step_size.dim() == 0
     np.testing.assert_array_equal(st.positions.numpy(), q)
     assert st.step_size.item() == 0.25
     with pytest.raises(ValueError):
-        hmc_state_from_numpy(q, 0.1, im[:2])
-    t = tensor_from_numpy(np.arange(6).reshape(2, 3)[:, ::2])
+        hmc_state_from_numpy(q, 0.1, im[:2], device="cpu")
+    t = tensor_from_numpy(np.arange(6).reshape(2, 3)[:, ::2], device="cpu")
     assert t.dtype == torch.int64 and t.is_contiguous() and t.tolist() == [[0, 2], [3, 5]]
-    assert tensor_from_numpy([1.0, 2.0], dtype=torch.float32).dtype == torch.float32
+    assert tensor_from_numpy([1.0, 2.0], device="cpu", dtype=torch.float32).dtype == torch.float32
 
 
 def test_plate_slice_end_to_end():
@@ -110,7 +121,7 @@ def test_plate_slice_end_to_end():
         sigma = ftt.sample("sigma", ftt.LogNormal(0.0, 1.0))
         ftt.factor(ftt.pnormal_loglik_sum(y, mu, sigma))
 
-    res = ftt.hmc_chain(2, plate, n_samples=60, n_warmup=60, n_chains=8,
+    res = ftt.hmc_chain(2, plate, n_samples=60, n_warmup=60, n_chains=8, device="cpu",
                         config=ftt.HMCConfig(n_leapfrog=8, jitter=0.5),
                         init_position=torch.stack([y.mean(), y.std().log()]),
                         init_jitter=0.01)

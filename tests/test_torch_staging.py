@@ -112,7 +112,7 @@ def test_discovery_runs_once_outside_any_transform(monkeypatch):
         return real(self, seed)
 
     monkeypatch.setattr(ftt.StagedModel, "_discover", counting)
-    ts = ftt.stage(models.torch_eight_schools())
+    ts = ftt.stage(models.torch_eight_schools(), device="cpu")
     batched_force(ts.potential)(torch.as_tensor(_z(ts.dim)))
     assert levels == [None]
 
@@ -123,7 +123,7 @@ def test_structure_errors():
         ftt.sample("x", ftt.Normal(0.0, 1.0))
 
     with pytest.raises(ftt.ModelStructureError):
-        ftt.stage(dup)
+        ftt.stage(dup, device="cpu")
     _, ts = models.eight_schools_pair()
     with pytest.raises(ftt.TraceAccessError):
         ts.log_density_parts({"mu": torch.tensor(0.0)})

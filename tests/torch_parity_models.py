@@ -12,9 +12,7 @@ import torch
 
 import fugue_tpu as ft
 import fugue_tpu_torch as ftt
-from chip_smoke import eight_schools_model, plate_model
-
-N_GROUPS = 17
+from chip_smoke import eight_schools_model, hierarchical_model, plate_model
 
 
 def torch_eight_schools():
@@ -24,30 +22,17 @@ def torch_eight_schools():
 def eight_schools_pair():
     import bench
 
-    return ft.stage(bench.eight_schools_model), ftt.stage(torch_eight_schools())
+    return ft.stage(bench.eight_schools_model), ftt.stage(torch_eight_schools(), device="cpu")
 
 
 def torch_hierarchical():
-    data = torch.as_tensor(np.random.default_rng(0).normal(0.5, 1.0, (N_GROUPS, 5)))
-
-    def hierarchical():
-        mu = ftt.sample("mu", ftt.Normal(0.0, 2.0))
-        tau = ftt.sample("tau", ftt.LogNormal(0.0, 0.5))
-        sigma = ftt.sample("sigma", ftt.LogNormal(0.0, 0.5))
-        thetas = []
-        for i in range(N_GROUPS):
-            theta_i = ftt.sample(ftt.addr("theta", i), ftt.Normal(mu, tau))
-            ftt.observe(ftt.addr("y", i), ftt.Normal(theta_i, sigma), data[i])
-            thetas.append(theta_i)
-        return thetas
-
-    return hierarchical
+    return hierarchical_model("cpu", torch.float64)
 
 
 def hierarchical_pair():
     import bench
 
-    return ft.stage(bench.hierarchical_model), ftt.stage(torch_hierarchical())
+    return ft.stage(bench.hierarchical_model), ftt.stage(torch_hierarchical(), device="cpu")
 
 
 def plate_data(n, seed=5):
@@ -68,4 +53,4 @@ def plate_pair(n):
         sigma = ft.sample("sigma", ft.LogNormal(0.0, 1.0))
         ft.factor(jax_pnormal(y_j, mu, sigma))
 
-    return ft.stage(jax_plate), ftt.stage(plate_model(y_t))
+    return ft.stage(jax_plate), ftt.stage(plate_model(y_t), device="cpu")
