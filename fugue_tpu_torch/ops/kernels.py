@@ -2,24 +2,26 @@
 
 The ports of the TPU kernels in ``fugue_tpu/ops/pallas_kernels.py``:
 
-- ``pnormal_loglik_sum`` (forward ``_nll_fwd_kernel``, backward
-  ``_nll_bwd_kernel``; ``csrc/normal_loglik_sum.cu``): the force term of
-  models whose likelihood is ``factor(pnormal_loglik_sum(y, mu, sigma))``;
+- ``pnormal_loglik_sum`` (forward ``_nll_fwd_kernel`` and backward
+  ``_nll_bwd_kernel``, as one value-and-grad kernel;
+  ``csrc/normal_loglik_sum.cu``): the force term of models whose
+  likelihood is ``factor(pnormal_loglik_sum(y, mu, sigma))``;
 - ``plogsumexp`` (``_plogsumexp_kernel``; ``csrc/logsumexp.cu``): SMC's
   weight normalisation, evidence and ESS reductions;
 - ``psystematic_resample`` (``_presample_kernel``;
   ``csrc/systematic_resample.cu``): SMC's ancestor draw.
 
-The TPU kernel ran once per chain under ``vmap``. Here the kernel takes the
-chain batch natively: ``y`` (N,) shared by all chains, ``mu`` and ``sigma``
-(C,), output (C,). ``pnormal_loglik_sum`` is a ``torch.autograd.Function``
-whose ``vmap`` rule turns a batch of per-chain calls into one batched
-launch, so ``vmap(grad_and_value(potential))`` over C chains launches the
-forward kernel once and the backward kernel once.
+The TPU kernel ran once per chain under ``vmap``, once per direction. Here
+one call takes the chain batch natively, ``y`` (N,) shared by all chains,
+``mu`` and ``sigma`` (C,), and returns the value and both gradients (C,)
+from one read of ``y``. ``pnormal_loglik_sum`` is a
+``torch.autograd.Function`` whose ``vmap`` rule turns a batch of per-chain
+calls into one batched call, so ``vmap(grad_and_value(potential))`` over C
+chains makes one call.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 PyTorch version beside it. There is no fallback, size threshold or switch.
-``LAUNCHES`` counts the kernel launches, one per call of a C entry point.
+``LAUNCHES`` counts the calls of each C entry point.
 """
 
 from __future__ import annotations
@@ -35,17 +37,18 @@ from . import _build
 _LOG_2PI = math.log(2.0 * math.pi)
 _NLL, _LSE, _RESAMPLE = "normal_loglik_sum", "logsumexp", "systematic_resample"
 _THREADS = 256  # kThreads in the .cu sources
-_MAX_CHAINS = 2**31 - 1  # gridDim.x; blocks per chain go on gridDim.y
+_LOADS = 4  # kLoads in normal_loglik_sum.cu: 16-byte loads per thread in a tile
+_BLOCKS_PER_SM = 2  # the plate kernel's grid: about two blocks per SM
+_MAX_CHAINS = 2**31 - 1
 _MAX_LSE_BLOCKS = 1024  # partial pairs combined by logsumexp's second pass
 _FLOATS = (torch.float32, torch.float64)
 
-# kernel launches, one per call of each C entry point
-LAUNCHES = {"fwd": 0, "bwd": 0, "lse": 0, "resample": 0}
+# calls of each C entry point
+LAUNCHES = {"nll": 0, "lse": 0, "resample": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
-    _NLL: {"fugue_nll_fwd_{}": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-           "fugue_nll_bwd_{}": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
+    _NLL: {"fugue_nll_value_grad_{}": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
     _LSE: {"fugue_lse_{}": [_P, _P, _P, _P, _I, _I, _P]},
     _RESAMPLE: {"fugue_resample_{}": [_P, _P, _P, _P, _P, _I, _P]},
 }
@@ -56,18 +59,15 @@ _SIGNATURES = {
 # ---------------------------------------------------------------------------
 
 
-def normal_loglik_sum_ref(y, mu, sigma):
-    """Σ_i log N(y_i; mu_c, sigma_c) for each chain c: y (N,), mu/sigma (C,)."""
+def normal_loglik_sum_value_and_grad_ref(y, mu, sigma):
+    """Σ_i log N(y_i; mu_c, sigma_c) and its (d/dmu, d/dsigma) for each chain
+    c, row by row: y (N,), mu/sigma (C,). With z = (y - mu) / sigma:
+    (-Σz²/2 - N(log σ + log(2π)/2), Σz/σ, Σz²/σ - N/σ)."""
     z = (y.reshape(1, -1) - mu.reshape(-1, 1)) / sigma.reshape(-1, 1)
     n = y.numel()
-    return -0.5 * torch.sum(z * z, dim=1) - n * (torch.log(sigma) + 0.5 * _LOG_2PI)
-
-
-def normal_loglik_sum_grad_ref(y, mu, sigma):
-    """(d/dmu, d/dsigma) of ``normal_loglik_sum_ref``: (Σz/σ, Σz²/σ − N/σ)."""
-    z = (y.reshape(1, -1) - mu.reshape(-1, 1)) / sigma.reshape(-1, 1)
-    n = y.numel()
-    return torch.sum(z, dim=1) / sigma, torch.sum(z * z, dim=1) / sigma - n / sigma
+    sz2 = torch.sum(z * z, dim=1)
+    value = -0.5 * sz2 - n * (torch.log(sigma) + 0.5 * _LOG_2PI)
+    return value, torch.sum(z, dim=1) / sigma, sz2 / sigma - n / sigma
 
 
 # ---------------------------------------------------------------------------
@@ -101,11 +101,25 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
 
 
-def _n_blocks(n: int, n_chains: int) -> int:
-    """Blocks per chain: about 2048 blocks in all (several waves over the
-    card's 132 SMs), but at least 4 elements per thread; never above 2048,
-    well inside gridDim.y's 65535."""
-    return max(1, min(-(-2048 // n_chains), -(-n // (_THREADS * 4))))
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _plate_partition(n: int, offset: int, itemsize: int, n_sms: int):
+    """How the plate kernel cuts y into work: (head, n_vec, n_blocks).
+
+    ``offset`` is y's start in elements past a 16-byte boundary. Rows
+    ``[0, head)`` and ``[head + n_vec * w, n)`` (w elements per 16 bytes)
+    are read as scalars; the ``n_vec`` 16-byte vectors between go in tiles
+    of ``_THREADS * _LOADS`` vectors, tile t to block ``t % n_blocks``. The
+    grid is about two blocks per SM, fewer when there are fewer tiles; it
+    never depends on the number of chains."""
+    w = 16 // itemsize
+    head = min(n, (w - offset % w) % w)
+    n_vec = (n - head) // w
+    n_tiles = -(-n_vec // (_THREADS * _LOADS))
+    return head, n_vec, max(1, min(_BLOCKS_PER_SM * n_sms, n_tiles))
 
 
 def _check_launch(y, mu, sigma) -> None:
@@ -125,35 +139,34 @@ def _check_launch(y, mu, sigma) -> None:
         raise ValueError(f"the kernel takes 1..{_MAX_CHAINS} chains, got {mu.numel()}")
 
 
-def _launch(direction: str, y, mu, sigma):
+def _launch_nll(y, mu, sigma):
     _check_launch(y, mu, sigma)
-    n, n_chains = y.numel(), mu.numel()
-    nb = _n_blocks(n, n_chains)
-    n_scratch = 1 if direction == "fwd" else 2
-    scratch = torch.empty((n_scratch, n_chains, nb), dtype=torch.float64, device=y.device)
-    outs = [torch.empty_like(mu) for _ in range(n_scratch)]
-    fn = _entry(_NLL, f"fugue_nll_{direction}_{{}}", y.dtype)
+    n, n_chains, itemsize = y.numel(), mu.numel(), y.element_size()
+    _, _, nb = _plate_partition(n, y.data_ptr() % 16 // itemsize, itemsize,
+                                _sm_count(y.device.index))
+    # 32 bytes of moments per block, then the shift
+    scratch = torch.empty(4 * nb + 1, dtype=torch.float64, device=y.device)
+    outs = [torch.empty_like(mu) for _ in range(3)]
+    fn = _entry(_NLL, "fugue_nll_value_grad_{}", y.dtype)
     with torch.cuda.device(y.device):
         rc = fn(y.data_ptr(), mu.data_ptr(), sigma.data_ptr(), scratch.data_ptr(),
                 *[o.data_ptr() for o in outs], n, n_chains, nb, _stream(y.device))
-    _raise_on(rc, f"normal_loglik_sum {direction}")
-    LAUNCHES[direction] += 1
+    _raise_on(rc, "normal_loglik_sum")
+    LAUNCHES["nll"] += 1
     return outs
 
 
-def _dispatch(direction: str, y, mu, sigma):
+def _value_and_grad(y, mu, sigma):
     """Kernel for CUDA tensors, plain version for CPU tensors, else raise."""
     if y.is_cuda:
-        return _launch(direction, y, mu, sigma)
+        return _launch_nll(y, mu, sigma)
     if all(t.device.type == "cpu" for t in (y, mu, sigma)):
         if not (mu.dtype == sigma.dtype == y.dtype):
             raise TypeError(
                 f"y, mu and sigma must share a dtype, got {y.dtype}, "
                 f"{mu.dtype}, {sigma.dtype}"
             )
-        if direction == "fwd":
-            return [normal_loglik_sum_ref(y, mu, sigma)]
-        return list(normal_loglik_sum_grad_ref(y, mu, sigma))
+        return normal_loglik_sum_value_and_grad_ref(y, mu, sigma)
     raise ValueError(
         f"pnormal_loglik_sum runs on CUDA or CPU tensors, got y on {y.device}, "
         f"mu on {mu.device}, sigma on {sigma.device}"
@@ -173,48 +186,30 @@ def _flat(x):
     return x.reshape(-1).contiguous()
 
 
-class _NormalLoglikSumGrad(torch.autograd.Function):
-    """(dmu, dsigma) for mu/sigma of any equal shape; the backward kernel."""
-
-    @staticmethod
-    def forward(y, mu, sigma):
-        dmu, dsigma = _dispatch("bwd", y, _flat(mu), _flat(sigma))
-        return dmu.reshape(mu.shape), dsigma.reshape(mu.shape)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        pass
-
-    @staticmethod
-    def backward(ctx, g_dmu, g_dsigma):
-        raise NotImplementedError("pnormal_loglik_sum has no second derivative")
-
-    @staticmethod
-    def vmap(info, in_dims, y, mu, sigma):
-        if in_dims[0] is not None:
-            raise ValueError("pnormal_loglik_sum: y must not be batched under vmap")
-        mu = _batch_first(mu, in_dims[1], info.batch_size)
-        sigma = _batch_first(sigma, in_dims[2], info.batch_size)
-        return _NormalLoglikSumGrad.apply(y, mu, sigma), (0, 0)
-
-
 class _NormalLoglikSum(torch.autograd.Function):
-    """Σ_i log N(y_i; mu, sigma) for mu/sigma of any equal shape; the
-    forward kernel, with the backward kernel behind its gradient."""
+    """(value, d/dmu, d/dsigma) for mu/sigma of any equal shape, from one
+    kernel call.
+
+    The backward scales the saved gradients. They stay outputs of this
+    Function, so a second derivative, which differentiates g * dmu through
+    dmu, comes back here with a gradient for dmu or dsigma and raises: the
+    saved gradients are constants to autograd, and letting it through would
+    give zero where d²/dmu² is -N/σ²."""
 
     @staticmethod
     def forward(y, mu, sigma):
-        (out,) = _dispatch("fwd", y, _flat(mu), _flat(sigma))
-        return out.reshape(mu.shape)
+        return tuple(t.reshape(mu.shape) for t in _value_and_grad(y, _flat(mu), _flat(sigma)))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(*inputs)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*inputs, output[1], output[2])
 
     @staticmethod
-    def backward(ctx, g):
-        y, mu, sigma = ctx.saved_tensors
-        dmu, dsigma = _NormalLoglikSumGrad.apply(y, mu, sigma)
+    def backward(ctx, g, g_dmu, g_dsigma):
+        if g_dmu is not None or g_dsigma is not None:
+            raise NotImplementedError("pnormal_loglik_sum has no second derivative")
+        y, mu, sigma, dmu, dsigma = ctx.saved_tensors
         dy = None
         if ctx.needs_input_grad[0]:
             # dy_i = Σ_c g_c · (-(y_i - mu_c) / sigma_c²), as the JAX
@@ -229,7 +224,7 @@ class _NormalLoglikSum(torch.autograd.Function):
             raise ValueError("pnormal_loglik_sum: y must not be batched under vmap")
         mu = _batch_first(mu, in_dims[1], info.batch_size)
         sigma = _batch_first(sigma, in_dims[2], info.batch_size)
-        return _NormalLoglikSum.apply(y, mu, sigma), 0
+        return _NormalLoglikSum.apply(y, mu, sigma), (0, 0, 0)
 
 
 def _as_param(x, like):
@@ -238,23 +233,29 @@ def _as_param(x, like):
     return torch.full((), float(x), dtype=like.dtype, device=like.device)
 
 
-def pnormal_loglik_sum(y, mu, sigma):
-    """Σ_i log N(y_i; mu, sigma) over all elements of ``y``.
+def pnormal_loglik_sum_value_and_grad(y, mu, sigma):
+    """(Σ_i log N(y_i; mu, sigma), d/dmu, d/dsigma) over all elements of
+    ``y``, from one kernel call for CUDA tensors.
 
     ``mu`` and ``sigma`` are scalars, or tensors of one shape (a batch of
-    chains); the result has their shape. Differentiable in all three;
-    under ``torch.func.vmap`` a batch of calls is one kernel launch."""
+    chains); each result has their shape. The value is differentiable in
+    all three inputs, once; under ``torch.func.vmap`` a batch of calls is
+    one call."""
     y = _flat(y)
     mu, sigma = torch.broadcast_tensors(_as_param(mu, y), _as_param(sigma, y))
     return _NormalLoglikSum.apply(y, mu, sigma)
 
 
+def pnormal_loglik_sum(y, mu, sigma):
+    """Σ_i log N(y_i; mu, sigma) over all elements of ``y``; see
+    ``pnormal_loglik_sum_value_and_grad``."""
+    return pnormal_loglik_sum_value_and_grad(y, mu, sigma)[0]
+
+
 def pnormal_loglik_sum_grad(y, mu, sigma):
-    """(d/dmu, d/dsigma) of ``pnormal_loglik_sum``, through the backward
-    kernel for CUDA tensors."""
-    y = _flat(y)
-    mu, sigma = torch.broadcast_tensors(_as_param(mu, y), _as_param(sigma, y))
-    return _NormalLoglikSumGrad.apply(y, mu, sigma)
+    """(d/dmu, d/dsigma) of ``pnormal_loglik_sum``; see
+    ``pnormal_loglik_sum_value_and_grad``."""
+    return pnormal_loglik_sum_value_and_grad(y, mu, sigma)[1:]
 
 
 # ---------------------------------------------------------------------------
@@ -374,6 +375,7 @@ def psystematic_resample(generator: torch.Generator, log_weights):
     """Ancestor indices (int64, (N,)) of systematic resampling of a 1-D
     log-weight vector. The comb offset u0 is the one draw taken from
     ``generator``; nothing random runs inside the kernel."""
+    _check_vector("log_weights", log_weights)  # before the draw, which takes its dtype
     u0 = torch.rand((), generator=generator, device=log_weights.device,
                     dtype=log_weights.dtype)
     return systematic_resample_from_u0(log_weights, u0)

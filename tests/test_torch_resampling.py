@@ -125,6 +125,8 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
         K.psystematic_resample(torch.Generator(), torch.zeros(2, 3))
     with pytest.raises(ValueError):
         K.psystematic_resample(torch.Generator(), torch.zeros(8)[::2])
+    with pytest.raises(TypeError):
+        K.psystematic_resample(torch.Generator(), torch.zeros(8, dtype=torch.int32))
     with pytest.raises(ValueError):
         K.plogsumexp(torch.zeros(4, device="meta"))
 
