@@ -29,14 +29,20 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  one kernel call per batched model run.
 5. smc_kernels   the logsumexp and systematic-resampling kernels against
                  their plain versions and float64 references, at SMC's
-                 131,072 particles, 2^24 / 2^20 and ragged sizes, with
-                 -inf, +inf and NaN inputs and degenerate weights; device
-                 times of kernel, plain version and torch.logsumexp.
+                 131,072 particles, 2^24 / 2^20 and ragged sizes, from
+                 unaligned x[1:] views, with logits near +-1e4, one
+                 outlier, -inf, +inf and NaN inputs and degenerate
+                 weights, in both dtypes; each bitwise the same run to run
+                 and from a CUDA-graph replay. Device times of kernel,
+                 plain version and torch.logsumexp at 131,072 and 2^24,
+                 and launch_floor_ms, the device time of the least launch
+                 (an in-place add on one element).
 6. smc           ftt.adaptive_smc in float32: bench.py's 20-site
                  hierarchical model at 131,072 particles with MH and with
                  HMC rejuvenation, and the conjugate model at 8,192; gates
                  on convergence, the posterior mean of mu, the conjugate
-                 log-evidence and both kernels' launch counts.
+                 log-evidence and both kernels' launch counts (4 * stages
+                 + 3 logsumexp, stages - 1 resample).
 
 Then it prints the card's name and power limit, one JSON line describing
 the kernels, and as the last line
@@ -128,19 +134,27 @@ def median_ms(fn, reps: int = 25) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def device_ms(fn, reps: int = 25, calls: int = 10) -> float:
-    """Device time of one ``fn()`` call: ``calls`` calls captured in a CUDA
-    graph, the graph replayed ``reps`` times between CUDA events, and the
-    median replay divided by ``calls``. No host dispatch is in the window."""
+def capture(fn, calls: int = 1):
+    """``calls`` calls of ``fn`` captured in a CUDA graph, after one warm-up
+    call off the default stream (as capture requires): (graph, the last
+    call's output, which each replay rewrites)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()  # warm-up off the default stream, as capture requires
+        fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(calls):
-            fn()
+            out = fn()
+    return graph, out
+
+
+def device_ms(fn, reps: int = 25, calls: int = 10) -> float:
+    """Device time of one ``fn()`` call: ``calls`` calls captured in a CUDA
+    graph, the graph replayed ``reps`` times between CUDA events, and the
+    median replay divided by ``calls``. No host dispatch is in the window."""
+    graph, _ = capture(fn, calls)
     graph.replay()
     torch.cuda.synchronize()
     events = []
@@ -547,11 +561,27 @@ def conjugate_log_evidence() -> float:
 
 def _lse_inputs(n, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    finite = 10.0 * torch.randn(n, generator=g, device="cuda")
+    finite = 10.0 * torch.randn(n + 1, generator=g, device="cuda")
     ninf = torch.full((n,), -math.inf, device="cuda")
     one = ninf.clone()
     one[n // 3] = 3.0
-    return {"normal_x10": finite, "all_neg_inf": ninf, "one_finite": one}
+    z = torch.randn(n, generator=g, device="cuda", dtype=torch.float64)
+    outlier = z.float()
+    outlier[n // 2] = 50.0  # one weight e^50 above the rest
+    return {"normal_x10": finite[:n], "normal_x10[1:]": finite[1:], "all_neg_inf": ninf,
+            "one_finite": one, "near_+1e4": (1e4 + z).float(), "near_-1e4": (-1e4 + z).float(),
+            "one_outlier": outlier}
+
+
+def _same_from_graph(fn, what):
+    """``fn()`` captured in a CUDA graph and replayed twice gives the eager
+    call's result bitwise: the kernels reset what they need inside the call."""
+    want = fn()
+    graph, out = capture(fn)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(out, want), f"{what}: a graph replay differs from the eager call")
 
 
 def _exact_systematic(logits64: np.ndarray, u0: float) -> np.ndarray:
@@ -604,6 +634,8 @@ def phase_smc_kernels():
             else:
                 check(k.item() == r.item() == p.item(), f"lse at {n} {kind}: {k} {p} {r}")
                 row["kernel_vs_plain"] = 0.0
+            if kind == "normal_x10":
+                _same_from_graph(lambda: K.plogsumexp(x), f"lse at {n}")
             if kind == "normal_x10" and n in (N_PARTICLES, 1 << 24):
                 n_bytes, n_ops = 4 * n + 4, 4 * n  # x read once; sub, exp, add, compare
                 row.update(kernel_ms=device_ms(lambda: K.plogsumexp(x)),
@@ -617,9 +649,21 @@ def phase_smc_kernels():
         x[7] = special
         got = K.plogsumexp(x).item()
         check((math.isnan(got) if want == "nan" else got == math.inf), f"lse of a {want} input: {got}")
-    x64 = 10.0 * torch.randn(3 * 8192 + 17, device="cuda", dtype=torch.float64)
-    rel = abs(K.plogsumexp(x64).item() - K.logsumexp_ref(x64).item()) / abs(K.logsumexp_ref(x64).item())
+        x64 = torch.zeros(N_PARTICLES, device="cuda", dtype=torch.float64)
+        x64[7] = special
+        got = K.plogsumexp(x64).item()
+        check((math.isnan(got) if want == "nan" else got == math.inf), f"lse f64 of a {want}: {got}")
+    rel = 0.0
+    for n in (3 * 8192 + 17, N_PARTICLES, 1 << 20):
+        x64 = 10.0 * torch.randn(n + 1, device="cuda", dtype=torch.float64)
+        for x in (x64[:n], x64[1:], 1e4 + x64[:n]):
+            k, p = K.plogsumexp(x), K.logsumexp_ref(x)
+            rel = max(rel, abs(k.item() - p.item()) / abs(p.item()))
+            check(torch.equal(K.plogsumexp(x), k), f"lse float64 not deterministic at {n}")
     check(rel <= 1e-12, f"lse float64 kernel vs plain: {rel}")
+    x64 = torch.full((N_PARTICLES,), -math.inf, device="cuda", dtype=torch.float64)
+    check(K.plogsumexp(x64).item() == -math.inf, "lse f64 of all -inf")
+    _same_from_graph(lambda: K.plogsumexp(x64[1:] + 1.0), "lse float64")
     emit({"phase": "smc_kernels", "kernel": "logsumexp", "dtype": "float64", "max_rel_err": rel})
 
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -645,6 +689,16 @@ def phase_smc_kernels():
         check(row["max_dev_vs_f64"] <= max(4, 2 * floor) and row["frac_differ"] < 0.02,
               f"resample f32 contract: {row}")
         emit(row)
+    # the same contract from an unaligned view, lw32[1:]
+    u0 = torch.tensor(0.37, device="cuda")
+    got = K.systematic_resample_from_u0(lw32[1:], u0)
+    _check_indices(got, n - 1, "resample f32 from lw[1:]")
+    ref = torch.as_tensor(_exact_systematic(logits[1:], float(u0.item())), device="cuda")
+    plain = K.systematic_resample_ref(u0, torch.exp(lw32[1:] - K.logsumexp_ref(lw32[1:])))
+    floor, dev = (plain - ref).abs().max().item(), (got - ref).abs()
+    check(dev.max().item() <= max(4, 2 * floor) and (dev > 0).float().mean().item() < 0.02,
+          f"resample f32 contract from lw[1:]: max dev {dev.max().item()}, plain {floor}")
+    _same_from_graph(lambda: K.systematic_resample_from_u0(lw32, u0), "resample f32")
     # times at the weights a ladder stage resamples: ESS about N/2
     lw_main = torch.as_tensor(np.random.default_rng(8).normal(size=n) * 0.83,
                               dtype=torch.float32, device="cuda")
@@ -665,11 +719,24 @@ def phase_smc_kernels():
     row["bound_ms"], row["bound_by"] = bound_ms(12 * n + 4, 7 * n)
     rows[("resample", n)] = row
     emit(row)
+    # the same weights at 2^24: device time and bound only
+    big = torch.as_tensor(np.random.default_rng(9).normal(size=1 << 24) * 0.83,
+                          dtype=torch.float32, device="cuda")
+    _check_indices(K.systematic_resample_from_u0(big, u0), 1 << 24, "resample f32 at 2^24")
+    big_bound, big_by = bound_ms(12 * (1 << 24) + 4, 7 * (1 << 24))
+    emit({"phase": "smc_kernels", "kernel": "systematic_resample", "n": 1 << 24,
+          "dtype": "float32", "weights": "normal x 0.83",
+          "kernel_ms": device_ms(lambda: K.systematic_resample_from_u0(big, u0)),
+          "bound_ms": big_bound, "bound_by": big_by})
+    del big
     # float64 against the plain float64 version, at 2^20 and a ragged size
-    for n in (1 << 20, 5 * 2048 + 17, N_PARTICLES):
-        lw64 = 3.0 * torch.randn(n, generator=g, device="cuda", dtype=torch.float64)
-        for u0v in (0.0, 0.37, 1.0 - 2.0**-52):
+    for n_all in (1 << 20, 5 * 2048 + 17, N_PARTICLES):
+        lw64_all = 3.0 * torch.randn(n_all, generator=g, device="cuda", dtype=torch.float64)
+        for u0v, view in ((0.0, slice(None)), (0.37, slice(None)), (1.0 - 2.0**-52, slice(None)),
+                          (0.37, slice(1, None))):
             u0 = torch.tensor(u0v, dtype=torch.float64, device="cuda")
+            lw64 = lw64_all[view]
+            n = lw64.numel()
             got = K.systematic_resample_from_u0(lw64, u0)
             _check_indices(got, n, f"resample f64 n={n} u0={u0v}")
             plain = K.systematic_resample_ref(u0, torch.exp(lw64 - K.logsumexp_ref(lw64)))
@@ -681,17 +748,33 @@ def phase_smc_kernels():
             _check_indices(got32, n, f"resample f32 n={n} u0={u0v}")
             check(torch.equal(got32, K.systematic_resample_from_u0(lw64.float(), u0.float())),
                   f"resample f32 not deterministic at n={n}")
-        emit({"phase": "smc_kernels", "kernel": "systematic_resample", "n": n, "dtype": "float64",
+        emit({"phase": "smc_kernels", "kernel": "systematic_resample", "n": n_all, "dtype": "float64",
               "max_dev_vs_plain": dev.max().item(), "frac_differ": (dev > 0).float().mean().item()})
-    # degenerate weights: one particle takes every slot (one tile writes all)
-    lw = torch.full((N_PARTICLES,), -math.inf, device="cuda")
-    lw[12345] = 0.0
-    got = K.systematic_resample_from_u0(lw, torch.tensor(0.5, device="cuda"))
-    check(bool((got == 12345).all()), "resample of one live particle")
-    lw[100000] = 0.0  # two live particles share the slots equally
-    got = K.systematic_resample_from_u0(lw, torch.tensor(0.5, device="cuda"))
-    check(int((got == 12345).sum()) == N_PARTICLES // 2 and int((got == 100000).sum()) == N_PARTICLES // 2,
-          "resample of two live particles")
+    _same_from_graph(lambda: K.systematic_resample_from_u0(lw64_all[1:], u0), "resample f64")
+    # degenerate weights, in both dtypes: one particle takes every slot (one
+    # tile owns all), two share them equally; no finite weight, a NaN or a
+    # +inf weight gives the identity
+    ident = torch.arange(N_PARTICLES, device="cuda")
+    for dt in (torch.float32, torch.float64):
+        half = torch.tensor(0.5, device="cuda", dtype=dt)
+        lw = torch.full((N_PARTICLES,), -math.inf, device="cuda", dtype=dt)
+        check(torch.equal(K.systematic_resample_from_u0(lw, half), ident), f"resample all -inf {dt}")
+        lw[12345] = 0.0
+        got = K.systematic_resample_from_u0(lw, half)
+        check(bool((got == 12345).all()), f"resample of one live particle {dt}")
+        lw[100000] = 0.0
+        got = K.systematic_resample_from_u0(lw, half)
+        check(int((got == 12345).sum()) == N_PARTICLES // 2
+              and int((got == 100000).sum()) == N_PARTICLES // 2, f"resample of two live particles {dt}")
+        for special in (math.nan, math.inf):
+            lw_s = lw.clone()
+            lw_s[777] = special
+            check(torch.equal(K.systematic_resample_from_u0(lw_s, half), ident),
+                  f"resample with a {special} weight {dt}: not the identity")
+    # the least a one-launch design can take: an in-place add on one element
+    one = torch.zeros(1, device="cuda")
+    rows["launch_floor_ms"] = device_ms(lambda: one.add_(1.0))
+    emit({"phase": "smc_kernels", "launch_floor_ms": rows["launch_floor_ms"]})
     return rows
 
 
@@ -720,12 +803,11 @@ def _smc_run(name, staged, n, seed, config):
     check(res.converged and res.beta == 1.0, f"{name}: not converged, beta {res.beta}")
     # No terminal resample: every stage but the last (beta = 1) resampled.
     # logsumexp per stage: 2 in _next_beta's ESS, 1 to normalise, 1 for the
-    # evidence increment, and 1 inside each resample (its float64 lse); at
-    # the end 1 to normalise and 2 for the ESS: 5 * stages + 2 with the
-    # last stage's resample absent.
+    # evidence increment (the resample takes its own lse, not plogsumexp);
+    # at the end 1 to normalise and 2 for the ESS: 4 * stages + 3.
     s = res.n_stages
     check(launches["resample"] == s - 1, f"{name}: {launches['resample']} resample launches, {s} stages")
-    check(launches["lse"] == 5 * s + 2, f"{name}: {launches['lse']} logsumexp launches, want {5 * s + 2}")
+    check(launches["lse"] == 4 * s + 3, f"{name}: {launches['lse']} logsumexp launches, want {4 * s + 3}")
     return row
 
 

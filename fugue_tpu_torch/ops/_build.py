@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
-plain C interface, loaded through ``ctypes``. The build happens at first
-use, from the sources in the package only, into ``fugue_tpu_torch/_build/``
-(listed in ``.gitignore``). The library's file name carries a hash of the
-source and the flags, so a changed source rebuilds and an unchanged one is
+Each ``csrc/<name>.cu`` (with the headers ``csrc/*.cuh`` it includes)
+compiles with ``nvcc`` into a shared library with a plain C interface,
+loaded through ``ctypes``. The build happens at first use, from the sources
+in the package only, into ``fugue_tpu_torch/_build/`` (listed in
+``.gitignore``). The library's file name carries a hash of the source, the
+headers and the flags, so a changed source rebuilds and an unchanged one is
 loaded as it is.
 """
 
@@ -46,8 +47,11 @@ def find_nvcc() -> str:
 
 
 def source_hash(name: str) -> str:
-    """Hash of ``csrc/<name>.cu`` and the build flags."""
+    """Hash of ``csrc/<name>.cu``, the shared headers ``csrc/*.cuh`` and the
+    build flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 

@@ -7,9 +7,12 @@ The ports of the TPU kernels in ``fugue_tpu/ops/pallas_kernels.py``:
   ``csrc/normal_loglik_sum.cu``): the force term of models whose
   likelihood is ``factor(pnormal_loglik_sum(y, mu, sigma))``;
 - ``plogsumexp`` (``_plogsumexp_kernel``; ``csrc/logsumexp.cu``): SMC's
-  weight normalisation, evidence and ESS reductions;
+  weight normalisation, evidence and ESS reductions, two launches per
+  call, the second a programmatic dependent launch;
 - ``psystematic_resample`` (``_presample_kernel``;
-  ``csrc/systematic_resample.cu``): SMC's ancestor draw.
+  ``csrc/systematic_resample.cu``): SMC's ancestor draw, two launches per
+  call with its own float64 log-sum-exp. Both share the reduction of
+  ``csrc/lse_reduce.cuh``.
 
 The TPU kernel ran once per chain under ``vmap``, once per direction. Here
 one call takes the chain batch natively, ``y`` (N,) shared by all chains,
@@ -38,9 +41,10 @@ _LOG_2PI = math.log(2.0 * math.pi)
 _NLL, _LSE, _RESAMPLE = "normal_loglik_sum", "logsumexp", "systematic_resample"
 _THREADS = 256  # kThreads in the .cu sources
 _LOADS = 4  # kLoads in normal_loglik_sum.cu: 16-byte loads per thread in a tile
-_BLOCKS_PER_SM = 2  # the plate kernel's grid: about two blocks per SM
+_BLOCKS_PER_SM = 2  # the plate kernel's and the lse reduction's grid: about two blocks per SM
 _MAX_CHAINS = 2**31 - 1
-_MAX_LSE_BLOCKS = 1024  # partial pairs combined by logsumexp's second pass
+_RESAMPLE_TILE = _THREADS * 4  # kTile in systematic_resample.cu
+_EMIT_BLOCKS_PER_SM = 4  # the resampling kernel's emit grid
 _FLOATS = (torch.float32, torch.float64)
 
 # calls of each C entry point
@@ -49,8 +53,8 @@ LAUNCHES = {"nll": 0, "lse": 0, "resample": 0}
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
     _NLL: {"fugue_nll_value_grad_{}": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
-    _LSE: {"fugue_lse_{}": [_P, _P, _P, _P, _I, _I, _P]},
-    _RESAMPLE: {"fugue_resample_{}": [_P, _P, _P, _P, _P, _I, _P]},
+    _LSE: {"fugue_lse_{}": [_P, _P, _P, _I, _I, _P]},
+    _RESAMPLE: {"fugue_resample_{}": [_P, _P, _P, _P, _I, _I, _I, _P]},
 }
 
 
@@ -106,18 +110,30 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+def _vector_layout(n: int, offset: int, itemsize: int):
+    """(head, n_vec): a vector of n elements that starts ``offset``
+    elements past a 16-byte boundary has ``head`` elements before its first
+    boundary, then ``n_vec`` whole 16-byte vectors, then a ragged tail of
+    fewer than 16 / itemsize elements."""
+    w = 16 // itemsize
+    head = min(n, (w - offset % w) % w)
+    return head, (n - head) // w
+
+
+def _offset(x) -> int:
+    """x's start in elements past a 16-byte boundary."""
+    return x.data_ptr() % 16 // x.element_size()
+
+
 def _plate_partition(n: int, offset: int, itemsize: int, n_sms: int):
     """How the plate kernel cuts y into work: (head, n_vec, n_blocks).
 
-    ``offset`` is y's start in elements past a 16-byte boundary. Rows
-    ``[0, head)`` and ``[head + n_vec * w, n)`` (w elements per 16 bytes)
-    are read as scalars; the ``n_vec`` 16-byte vectors between go in tiles
-    of ``_THREADS * _LOADS`` vectors, tile t to block ``t % n_blocks``. The
-    grid is about two blocks per SM, fewer when there are fewer tiles; it
-    never depends on the number of chains."""
-    w = 16 // itemsize
-    head = min(n, (w - offset % w) % w)
-    n_vec = (n - head) // w
+    Rows ``[0, head)`` and ``[head + n_vec * w, n)`` (w elements per 16
+    bytes; ``_vector_layout``) are read as scalars; the ``n_vec`` 16-byte
+    vectors between go in tiles of ``_THREADS * _LOADS`` vectors, tile t to
+    block ``t % n_blocks``. The grid is about two blocks per SM, fewer when
+    there are fewer tiles; it never depends on the number of chains."""
+    head, n_vec = _vector_layout(n, offset, itemsize)
     n_tiles = -(-n_vec // (_THREADS * _LOADS))
     return head, n_vec, max(1, min(_BLOCKS_PER_SM * n_sms, n_tiles))
 
@@ -142,8 +158,7 @@ def _check_launch(y, mu, sigma) -> None:
 def _launch_nll(y, mu, sigma):
     _check_launch(y, mu, sigma)
     n, n_chains, itemsize = y.numel(), mu.numel(), y.element_size()
-    _, _, nb = _plate_partition(n, y.data_ptr() % 16 // itemsize, itemsize,
-                                _sm_count(y.device.index))
+    _, _, nb = _plate_partition(n, _offset(y), itemsize, _sm_count(y.device.index))
     # 32 bytes of moments per block, then the shift
     scratch = torch.empty(4 * nb + 1, dtype=torch.float64, device=y.device)
     outs = [torch.empty_like(mu) for _ in range(3)]
@@ -282,26 +297,27 @@ def _check_vector(name: str, x) -> None:
         raise ValueError(f"{name} is empty")
 
 
-def _lse_blocks(n: int) -> int:
-    """First-pass blocks: at least 8 elements per thread, at most
-    ``_MAX_LSE_BLOCKS`` partial pairs for the one-block second pass."""
-    return max(1, min(_MAX_LSE_BLOCKS, -(-n // (_THREADS * 8))))
+def _lse_partition(n: int, offset: int, itemsize: int, n_sms: int):
+    """How the log-sum-exp reduction (``csrc/lse_reduce.cuh``; logsumexp's
+    first launch and the resampling kernel's) cuts x into work: (head,
+    n_vec, n_blocks), with head and n_vec from ``_vector_layout``. The grid
+    is ``n_blocks`` blocks of ``_THREADS``, about two per SM, fewer when
+    there are fewer than one vector per thread; global thread g reads
+    vectors g, g + S, g + 2S, ... (S threads in the grid)."""
+    head, n_vec = _vector_layout(n, offset, itemsize)
+    return head, n_vec, max(1, min(_BLOCKS_PER_SM * n_sms, -(-n_vec // _THREADS)))
 
 
-def _launch_lse(x, out_dtype):
-    """The logsumexp kernel on a checked CUDA vector; a 0-dim result in
-    ``out_dtype`` (x's dtype, or float64 for the resampling kernel)."""
+def _launch_lse(x):
+    """The logsumexp kernel on a CUDA vector: a 0-dim result in x's dtype."""
     _check_vector("x", x)
     n = x.numel()
-    nb = _lse_blocks(n)
-    if out_dtype not in (x.dtype, torch.float64):
-        raise TypeError(f"logsumexp writes {x.dtype} or float64, not {out_dtype}")
-    scratch = torch.empty(3 * nb, dtype=torch.float64, device=x.device)
-    out = torch.empty((), dtype=out_dtype, device=x.device)
-    as_t, as_64 = (None, out.data_ptr()) if out_dtype == torch.float64 else (out.data_ptr(), None)
+    _, _, nb = _lse_partition(n, _offset(x), x.element_size(), _sm_count(x.device.index))
+    scratch = torch.empty(3 * nb, dtype=torch.float64, device=x.device)  # 24 bytes a block
+    out = torch.empty((), dtype=x.dtype, device=x.device)
     fn = _entry(_LSE, "fugue_lse_{}", x.dtype)
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), scratch.data_ptr(), as_t, as_64, n, nb, _stream(x.device))
+        rc = fn(x.data_ptr(), scratch.data_ptr(), out.data_ptr(), n, nb, _stream(x.device))
     _raise_on(rc, "logsumexp")
     LAUNCHES["lse"] += 1
     return out
@@ -313,7 +329,7 @@ def plogsumexp(x):
     version for a CPU tensor."""
     x = x.reshape(-1) if x.is_contiguous() else x
     if x.is_cuda:
-        return _launch_lse(x, x.dtype)
+        return _launch_lse(x)
     if x.device.type == "cpu":
         _check_vector("x", x)
         return logsumexp_ref(x)
@@ -336,22 +352,33 @@ def systematic_resample_ref(u0, weights):
     return torch.clamp(torch.searchsorted(cdf, us, side="left"), 0, n - 1)
 
 
-def _launch_resample(log_weights, lse64, u0):
+def _resample_grid(n: int, n_sms: int):
+    """(n_tiles, n_emit): the resampling kernel's second pass cuts the
+    weights into tiles of ``_RESAMPLE_TILE`` elements, tile t being
+    elements ``[t * tile, min((t + 1) * tile, n))``, and runs ``n_emit``
+    blocks, about four per SM and never more than the tiles, which take
+    tiles in ticket order until none is left."""
+    n_tiles = -(-n // _RESAMPLE_TILE)
+    return n_tiles, max(1, min(_EMIT_BLOCKS_PER_SM * n_sms, n_tiles))
+
+
+def _launch_resample(log_weights, u0):
     _check_vector("log_weights", log_weights)
     n = log_weights.numel()
-    if lse64.dtype != torch.float64 or u0.dtype != log_weights.dtype:
-        raise TypeError("the resampling kernel takes a float64 lse and u0 in the weights' dtype")
-    for name, t in (("lse", lse64), ("u0", u0)):
-        if t.device != log_weights.device or t.numel() != 1:
-            raise ValueError(f"{name} must be one element on {log_weights.device}")
-    tile = _THREADS * 8  # kTile in the .cu source
-    n_tiles = -(-n // tile)
-    scratch = torch.empty(2 * n_tiles + 1, dtype=torch.int64, device=log_weights.device)
+    if u0.dtype != log_weights.dtype:
+        raise TypeError("the resampling kernel takes u0 in the weights' dtype")
+    if u0.device != log_weights.device or u0.numel() != 1:
+        raise ValueError(f"u0 must be one element on {log_weights.device}")
+    n_sms = _sm_count(log_weights.device.index)
+    _, _, n_parts = _lse_partition(n, _offset(log_weights), log_weights.element_size(), n_sms)
+    n_tiles, n_emit = _resample_grid(n, n_sms)
+    # the first pass's parts (3 words each), the tiles' look-back words, a ticket
+    scratch = torch.empty(3 * n_parts + n_tiles + 1, dtype=torch.int64, device=log_weights.device)
     idx = torch.empty(n, dtype=torch.int64, device=log_weights.device)
     fn = _entry(_RESAMPLE, "fugue_resample_{}", log_weights.dtype)
     with torch.cuda.device(log_weights.device):
-        rc = fn(log_weights.data_ptr(), lse64.data_ptr(), u0.data_ptr(), scratch.data_ptr(),
-                idx.data_ptr(), n, _stream(log_weights.device))
+        rc = fn(log_weights.data_ptr(), u0.data_ptr(), scratch.data_ptr(), idx.data_ptr(),
+                n, n_parts, n_emit, _stream(log_weights.device))
     _raise_on(rc, "systematic_resample")
     LAUNCHES["resample"] += 1
     return idx
@@ -360,10 +387,10 @@ def _launch_resample(log_weights, lse64, u0):
 def systematic_resample_from_u0(log_weights, u0):
     """Systematic-resampling ancestors of a 1-D log-weight vector with a
     given comb offset ``u0`` (0-dim, the weights' dtype and device). On a
-    CUDA tensor: the logsumexp kernel (float64 output), then the resampling
-    kernel."""
+    CUDA tensor: the resampling kernel, which takes its own float64
+    log-sum-exp of the weights (two launches, no ``plogsumexp``)."""
     if log_weights.is_cuda:
-        return _launch_resample(log_weights, _launch_lse(log_weights, torch.float64), u0)
+        return _launch_resample(log_weights, u0)
     if log_weights.device.type == "cpu":
         _check_vector("log_weights", log_weights)
         w = torch.exp(log_weights - logsumexp_ref(log_weights))

@@ -41,8 +41,8 @@ from chip_smoke import N_PARTICLES, hierarchical_model  # noqa: E402
 from fugue_tpu_torch.ops import kernels as K  # noqa: E402
 
 # CUDA kernel names of csrc/logsumexp.cu and csrc/systematic_resample.cu
-SMC_KERNELS = {"lse": ("partial_lse", "finalize_lse"),
-               "resample": ("tile_totals", "scan_totals", "emit")}
+SMC_KERNELS = {"lse": ("lse_partial", "lse_finish"),
+               "resample": ("lse_parts", "emit")}
 
 
 def _device_events(prof):

@@ -23,7 +23,7 @@ import torch
 from torch.func import grad_and_value, vmap
 
 import fugue_tpu_torch as ftt
-from chip_smoke import conjugate_evidence_model, eight_schools_model, plate_model
+from chip_smoke import capture, conjugate_evidence_model, eight_schools_model, plate_model
 from fugue_tpu_torch import settings
 from fugue_tpu_torch.inference import hmc
 from fugue_tpu_torch.ops import kernels as K
@@ -189,4 +189,29 @@ def test_short_smc_run_goes_through_both_kernels():
     s = res.n_stages
     assert res.converged and res.particles["mu"].is_cuda
     assert K.LAUNCHES["resample"] - before["resample"] == s - 1
-    assert K.LAUNCHES["lse"] - before["lse"] == 5 * s + 2
+    # the resample takes its own lse: 4 per stage and 3 at the end
+    assert K.LAUNCHES["lse"] - before["lse"] == 4 * s + 3
+
+
+def test_smc_kernels_from_views_graphs_and_without_weight():
+    """Both SMC kernels from an unaligned x[1:] view, bitwise the same from
+    a CUDA-graph replay as eagerly; no finite weight or a NaN weight gives
+    the identity."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for dtype in (torch.float32, torch.float64):
+        x = (3.0 * torch.randn(131072 + 1, generator=g, device="cuda", dtype=dtype))[1:]
+        u0 = torch.tensor(0.25, dtype=dtype, device="cuda")
+        r = K.logsumexp_ref(x.double()).item()
+        assert abs(K.plogsumexp(x).double().item() - r) <= 1e-6 * abs(r)
+        for fn in (lambda: K.plogsumexp(x), lambda: K.systematic_resample_from_u0(x, u0)):
+            want = fn()
+            graph, out = capture(fn)
+            for _ in range(2):
+                graph.replay()
+                torch.cuda.synchronize()
+                assert torch.equal(out, want)
+        ident = torch.arange(x.numel(), device="cuda")
+        none = torch.full_like(x, -math.inf)
+        assert torch.equal(K.systematic_resample_from_u0(none, u0), ident)
+        x[9] = math.nan
+        assert torch.equal(K.systematic_resample_from_u0(x, u0), ident)
