@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's HMC and SMC main paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's HMC, SMC and NUTS main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py                      # all phases
     python3 chip_smoke.py --phases build,kernel
     python3 chip_smoke.py --phases build,smc_kernels,smc
+    python3 chip_smoke.py --phases build,nuts_eight_schools,nuts_plate
 
 Phases (each prints JSON lines; any failure raises and exits non-zero):
 
@@ -43,6 +44,17 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  on convergence, the posterior mean of mu, the conjugate
                  log-evidence and both kernels' launch counts (4 * stages
                  + 3 logsumexp, stages - 1 resample).
+7. nuts_eight_schools  ftt.nuts_chain at bench_nuts's shape: 1024 chains,
+                 NUTSConfig() (max_depth 8, target 0.8, diagonal mass),
+                 float32, 200 warmup + 200 samples; gates on split-R-hat,
+                 divergence rate and the posterior mean of mu (the HMC
+                 phase's constant: the same posterior). Reports
+                 grad-evals/s, ESS/s, mean tree depth, the lock-step leaves
+                 per transition (batch maximum) beside each chain's mean,
+                 and host syncs per transition.
+8. nuts_plate    ftt.nuts_chain on the 2^20-row plate (64 chains, uniform
+                 init, 200 + 200, diagonal mass); the HMC plate's gates and
+                 one kernel call per batched model run.
 
 Then it prints the card's name and power limit, one JSON line describing
 the kernels, and as the last line
@@ -66,7 +78,8 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernel", "eight_schools", "gaussian_plate", "smc_kernels", "smc")
+PHASES = ("build", "kernel", "eight_schools", "gaussian_plate", "smc_kernels", "smc",
+          "nuts_eight_schools", "nuts_plate")
 SOURCES = ("normal_loglik_sum", "logsumexp", "systematic_resample")
 REPLACES = {
     # _nll_fwd_kernel and _nll_bwd_kernel, one value-and-grad kernel here
@@ -388,9 +401,33 @@ def eight_schools_model(device, dtype=torch.float32):
     return eight_schools
 
 
+def _eight_schools_posterior(res, n_chains, n_samples, what):
+    """mu's split-R-hat, ESS(mu), ESS(tau), mean, sd, and its distance from
+    the JAX package's long-run mean in MC standard errors; checks shapes
+    and finiteness."""
+    from fugue_tpu_torch.inference.mcmc_utils import ess_multichain, split_r_hat
+
+    mu = res.samples["mu"].double().cpu()
+    tau = res.samples["tau"].double().cpu()
+    check(mu.shape == (n_chains, n_samples) and bool(torch.isfinite(mu).all())
+          and bool(torch.isfinite(tau).all()),
+          f"{what} samples: shape {tuple(mu.shape)} or non-finite")
+    # ESS(mu) can reach its cap of chains x samples (antithetic draws), and
+    # then cannot show a loss of mixing. ESS(tau), the funnel's slow
+    # direction, is reported beside it, and ESS/s reads the smaller of the two.
+    ess, ess_tau = ess_multichain(mu).item(), ess_multichain(tau).item()
+    mean, sd = mu.mean().item(), mu.std().item()
+    mcse = sd / math.sqrt(ess)
+    return {"ess_mu": ess, "ess_mu_capped": ess >= n_chains * n_samples, "ess_tau": ess_tau,
+            "split_rhat_mu": split_r_hat(mu).item(),
+            "divergence_rate": res.divergences.float().mean().item(),
+            "mu_mean": mean, "mu_sd": sd, "mu_ref": EIGHT_SCHOOLS_MU_MEAN,
+            "mu_z": (mean - EIGHT_SCHOOLS_MU_MEAN) / math.hypot(mcse, EIGHT_SCHOOLS_MU_MCSE),
+            "dtype": str(res.samples["mu"].dtype), "step_size": res.step_size}
+
+
 def phase_eight_schools():
     import fugue_tpu_torch as ftt
-    from fugue_tpu_torch.inference.mcmc_utils import ess_multichain, split_r_hat
 
     n_chains, n_warmup, n_samples, L = 1024, 200, 200, 32
     staged = ftt.stage(eight_schools_model("cuda"), device="cuda")
@@ -401,31 +438,17 @@ def phase_eight_schools():
                         n_chains=n_chains, staged=staged)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    mu_dtype = res.samples["mu"].dtype
-    mu = res.samples["mu"].double().cpu()
-    check(mu.shape == (n_chains, n_samples) and bool(torch.isfinite(mu).all()),
-          f"eight_schools mu samples: shape {tuple(mu.shape)} or non-finite")
-    tau = res.samples["tau"].double().cpu()
-    # ESS(mu) can reach its cap of chains x samples (antithetic draws), and
-    # then cannot show a loss of mixing. ESS(tau), the funnel's slow
-    # direction, is reported beside it, and ESS/s reads the smaller of the two.
-    ess, ess_tau = ess_multichain(mu).item(), ess_multichain(tau).item()
-    rhat = split_r_hat(mu).item()
-    div = res.divergences.float().mean().item()
-    mean, sd = mu.mean().item(), mu.std().item()
-    mcse = sd / math.sqrt(ess)
-    z = (mean - EIGHT_SCHOOLS_MU_MEAN) / math.hypot(mcse, EIGHT_SCHOOLS_MU_MCSE)
+    post = _eight_schools_posterior(res, n_chains, n_samples, "eight_schools mu")
     grad_evals = n_chains * (n_warmup + n_samples) * (L + 1)
     emit({"phase": "eight_schools", "chains": n_chains, "warmup": n_warmup,
-          "samples": n_samples, "n_leapfrog": L, "dtype": str(mu_dtype), "wall_s": wall,
-          "grad_evals_per_s": grad_evals / wall, "ess_mu": ess,
-          "ess_mu_capped": ess >= n_chains * n_samples, "ess_tau": ess_tau,
-          "ess_per_s": min(ess, ess_tau) / wall, "split_rhat_mu": rhat, "divergence_rate": div,
-          "mu_mean": mean, "mu_sd": sd, "mu_ref": EIGHT_SCHOOLS_MU_MEAN,
-          "mu_z": z, "step_size": res.step_size})
+          "samples": n_samples, "n_leapfrog": L, "wall_s": wall,
+          "grad_evals_per_s": grad_evals / wall,
+          "ess_per_s": min(post["ess_mu"], post["ess_tau"]) / wall, **post})
+    rhat, div, z = post["split_rhat_mu"], post["divergence_rate"], post["mu_z"]
     check(rhat < 1.02, f"eight_schools split-R-hat(mu) {rhat} >= 1.02")
     check(div < 0.02, f"eight_schools divergence rate {div} >= 0.02")
-    check(abs(z) < 5.0, f"eight_schools mu mean {mean} is {z:.2f} MC-SE from {EIGHT_SCHOOLS_MU_MEAN}")
+    check(abs(z) < 5.0, f"eight_schools mu mean {post['mu_mean']} is {z:.2f} MC-SE "
+          f"from {EIGHT_SCHOOLS_MU_MEAN}")
 
 
 def plate_data(n):
@@ -449,60 +472,82 @@ def plate_model(y, runs=None):
     return plate
 
 
-def phase_gaussian_plate():
-    import fugue_tpu_torch as ftt
+def _plate_posterior(res, y, n_chains, n_samples, what):
+    """The numbers the plate's gates read (``_check_plate``); shapes and
+    finiteness checked."""
     from fugue_tpu_torch.inference.mcmc_utils import ess_multichain, split_r_hat
-    from fugue_tpu_torch.ops import kernels as K
 
-    n_chains, n_warmup, n_samples, L = MAIN_SHAPE[0], 200, 200, 16
-    n = MAIN_SHAPE[1]
-    y = plate_data(n)
-    model_runs = [0]
-    staged = ftt.stage(plate_model(y, model_runs), device="cuda")
-    cfg = ftt.HMCConfig(n_leapfrog=L, jitter=0.5)
-    torch.cuda.synchronize()
-    model_runs[0] = 0
-    for k in K.LAUNCHES:
-        K.LAUNCHES[k] = 0
-    t0 = time.perf_counter()
-    res = ftt.hmc_chain(3, n_samples=n_samples, n_warmup=n_warmup, config=cfg,
-                        n_chains=n_chains, staged=staged)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
-
+    n = y.numel()
     y64 = y.double()
     ybar, s = y64.mean().item(), y64.std(correction=0).item()
     mu = res.samples["mu"].double().cpu()
     sig = res.samples["sigma"].double().cpu()
     for name, x in (("mu", mu), ("sigma", sig)):
         check(x.shape == (n_chains, n_samples) and bool(torch.isfinite(x).all()),
-              f"plate {name} samples: shape {tuple(x.shape)} or non-finite")
-    mu_z = (mu.mean().item() - ybar) / (s / math.sqrt(n))
-    sig_z = (sig.mean().item() - s) / (s / math.sqrt(2 * n))
-    rhat = max(split_r_hat(mu).item(), split_r_hat(sig).item())
-    ess = min(ess_multichain(mu).item(), ess_multichain(sig).item())
+              f"{what} {name} samples: shape {tuple(x.shape)} or non-finite")
+    post = {"ess_min": min(ess_multichain(mu).item(), ess_multichain(sig).item()),
+            "mu_mean": mu.mean().item(), "ybar": ybar,
+            "mu_z": (mu.mean().item() - ybar) / (s / math.sqrt(n)),
+            "sigma_mean": sig.mean().item(), "sample_sd": s,
+            "sigma_z": (sig.mean().item() - s) / (s / math.sqrt(2 * n)),
+            "max_split_rhat": max(split_r_hat(mu).item(), split_r_hat(sig).item()),
+            "divergence_rate": res.divergences.float().mean().item(),
+            "dtype": str(res.samples["mu"].dtype), "step_size": res.step_size}
+    return post
+
+
+def _check_plate(post, launches, model_runs, what):
+    """Mean mu within 5 s/sqrt(N) of ybar, mean sigma within 5 s/sqrt(2N)
+    of s, max split-R-hat < 1.05, and one value-and-grad call per batched
+    model run (never one per chain), the epsilon search and the final
+    constrain pass included."""
+    check(abs(post["mu_z"]) < 5.0, f"{what} mu mean is {post['mu_z']:.2f} s/sqrt(N) from ybar")
+    check(abs(post["sigma_z"]) < 5.0, f"{what} sigma mean is {post['sigma_z']:.2f} s/sqrt(2N) from s")
+    check(post["max_split_rhat"] < 1.05, f"{what} max split-R-hat {post['max_split_rhat']} >= 1.05")
+    check(launches["nll"] > 0 and launches["nll"] == model_runs,
+          f"{what}: {launches['nll']} plate kernel calls for {model_runs} batched model runs")
+
+
+def _plate_run(run):
+    """``run(staged)`` on the plate model over plate_data at
+    MAIN_SHAPE's rows, timed, with the kernel's launch counts and the
+    batched model runs set to 0 just before and read just after."""
+    import fugue_tpu_torch as ftt
+    from fugue_tpu_torch.ops import kernels as K
+
+    y = plate_data(MAIN_SHAPE[1])
+    model_runs = [0]
+    staged = ftt.stage(plate_model(y, model_runs), device="cuda")
+    torch.cuda.synchronize()
+    model_runs[0] = 0
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    res = run(staged)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return y, res, wall, dict(K.LAUNCHES), model_runs[0]
+
+
+def phase_gaussian_plate():
+    import fugue_tpu_torch as ftt
+
+    n_chains, n_warmup, n_samples, L = MAIN_SHAPE[0], 200, 200, 16
+    n = MAIN_SHAPE[1]
+    cfg = ftt.HMCConfig(n_leapfrog=L, jitter=0.5)
+    y, res, wall, launches, model_runs = _plate_run(
+        lambda staged: ftt.hmc_chain(3, n_samples=n_samples, n_warmup=n_warmup, config=cfg,
+                                     n_chains=n_chains, staged=staged))
+    post = _plate_posterior(res, y, n_chains, n_samples, "plate")
     n_transitions = n_warmup + n_samples
     grad_evals = n_transitions * (L + 1)
     emit({"phase": "gaussian_plate", "chains": n_chains, "rows": n,
           "warmup": n_warmup, "samples": n_samples, "n_leapfrog": L,
-          "dtype": str(res.samples["mu"].dtype),
           "wall_s": wall, "grad_evals_per_s": n_chains * grad_evals / wall,
           "rows_per_s": n_chains * grad_evals * n / wall,
-          "ess_min": ess, "ess_per_sampling_grad_eval": ess / (n_chains * n_samples * (L + 1)),
-          "mu_mean": mu.mean().item(), "ybar": ybar, "mu_z": mu_z,
-          "sigma_mean": sig.mean().item(), "sample_sd": s, "sigma_z": sig_z,
-          "max_split_rhat": rhat,
-          "divergence_rate": res.divergences.float().mean().item(),
-          "batched_model_runs": model_runs[0], "launches": launches,
-          "step_size": res.step_size})
-    check(abs(mu_z) < 5.0, f"plate mu mean is {mu_z:.2f} s/sqrt(N) from ybar")
-    check(abs(sig_z) < 5.0, f"plate sigma mean is {sig_z:.2f} s/sqrt(2N) from s")
-    check(rhat < 1.05, f"plate max split-R-hat {rhat} >= 1.05")
-    # one value-and-grad call per batched model run (never one per chain),
-    # the final constrain pass included
-    check(launches["nll"] > 0 and launches["nll"] == model_runs[0],
-          f"{launches['nll']} plate kernel calls for {model_runs[0]} batched model runs")
+          "ess_per_sampling_grad_eval": post["ess_min"] / (n_chains * n_samples * (L + 1)),
+          "batched_model_runs": model_runs, "launches": launches, **post})
+    _check_plate(post, launches, model_runs, "plate")
     check(launches["nll"] < 2 * grad_evals,
           f"{launches['nll']} plate kernel calls for {grad_evals} batched gradients")
     return launches
@@ -840,6 +885,75 @@ def phase_smc():
     return launches
 
 
+def _nuts_tree_stats(res, n_chains, n_transitions, wall):
+    """The tree build's costs: lock-step leaves per transition (the batch
+    maximum, what every chain waits for) beside the mean over chains of its
+    own leaves, their ratio, host syncs per transition and wall ms per
+    lock-step leaf."""
+    mean_leaves = res.n_leapfrogs / (n_chains * n_transitions)
+    max_leaves = res.lockstep_leaves / n_transitions
+    return {"mean_tree_depth": res.tree_depths.double().mean().item(),
+            "n_leapfrogs": res.n_leapfrogs, "lockstep_leaves": res.lockstep_leaves,
+            "leaves_per_transition_max": max_leaves, "leaves_per_transition_mean": mean_leaves,
+            "lockstep_over_mean": max_leaves / mean_leaves,
+            "host_syncs_per_transition": res.host_syncs / n_transitions,
+            "ms_per_lockstep_leaf": 1e3 * wall / res.lockstep_leaves}
+
+
+def phase_nuts_eight_schools():
+    import fugue_tpu_torch as ftt
+
+    n_chains, n_warmup, n_samples = 1024, 200, 200
+    staged = ftt.stage(eight_schools_model("cuda"), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ftt.nuts_chain(5, n_samples=n_samples, n_warmup=n_warmup, config=ftt.NUTSConfig(),
+                         n_chains=n_chains, staged=staged)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    post = _eight_schools_posterior(res, n_chains, n_samples, "nuts eight_schools")
+    n_transitions = n_warmup + n_samples
+    # grad-evals as bench.py's bench_nuts counts them: every chain's own
+    # leapfrogs plus one root evaluation per transition
+    grad_evals = res.n_leapfrogs + n_chains * n_transitions
+    emit({"phase": "nuts_eight_schools", "chains": n_chains, "warmup": n_warmup,
+          "samples": n_samples, "max_depth": 8, "wall_s": wall,
+          "grad_evals_per_s": grad_evals / wall,
+          "ess_per_s": min(post["ess_mu"], post["ess_tau"]) / wall, **post,
+          **_nuts_tree_stats(res, n_chains, n_transitions, wall)})
+    rhat, div, z = post["split_rhat_mu"], post["divergence_rate"], post["mu_z"]
+    check(rhat < 1.02, f"nuts eight_schools split-R-hat(mu) {rhat} >= 1.02")
+    check(div < 0.05, f"nuts eight_schools divergence rate {div} >= 0.05")
+    check(abs(z) < 5.0, f"nuts eight_schools mu mean {post['mu_mean']} is {z:.2f} MC-SE "
+          f"from {EIGHT_SCHOOLS_MU_MEAN}")
+
+
+def phase_nuts_plate():
+    import fugue_tpu_torch as ftt
+
+    n_chains, n_warmup, n_samples = MAIN_SHAPE[0], 200, 200
+    n = MAIN_SHAPE[1]
+    y, res, wall, launches, model_runs = _plate_run(
+        lambda staged: ftt.nuts_chain(3, n_samples=n_samples, n_warmup=n_warmup,
+                                      config=ftt.NUTSConfig(), n_chains=n_chains, staged=staged))
+    post = _plate_posterior(res, y, n_chains, n_samples, "nuts plate")
+    n_transitions = n_warmup + n_samples
+    grad_evals = res.n_leapfrogs + n_chains * n_transitions  # each chain's own
+    emit({"phase": "nuts_plate", "chains": n_chains, "rows": n, "warmup": n_warmup,
+          "samples": n_samples, "max_depth": 8, "wall_s": wall,
+          "grad_evals_per_s": grad_evals / wall, "rows_per_s": grad_evals * n / wall,
+          # the lock-step build evaluates every chain at every leaf
+          "rows_evaluated_per_s": n_chains * (res.lockstep_leaves + n_transitions) * n / wall,
+          "ess_per_s": post["ess_min"] / wall, "batched_model_runs": model_runs,
+          "launches": launches, **post, **_nuts_tree_stats(res, n_chains, n_transitions, wall)})
+    _check_plate(post, launches, model_runs, "nuts plate")
+    # a batched model run for the root and every lock-step leaf, besides the
+    # epsilon search and the final constrain pass
+    check(launches["nll"] >= res.lockstep_leaves + n_transitions,
+          f"{launches['nll']} plate kernel calls for {res.lockstep_leaves} leaves")
+    return launches
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -861,7 +975,7 @@ def main(argv=None) -> int:
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     import fugue_tpu_torch  # noqa: F401  (fails outside a checkout)
 
-    kernel_rows = launches = smc_rows = smc_launches = None
+    kernel_rows = launches = smc_rows = smc_launches = nuts_launches = None
     if "build" in phases:
         phase_build()
     if "kernel" in phases:
@@ -874,6 +988,10 @@ def main(argv=None) -> int:
         smc_rows = phase_smc_kernels()
     if "smc" in phases:
         smc_launches = phase_smc()
+    if "nuts_eight_schools" in phases:
+        phase_nuts_eight_schools()
+    if "nuts_plate" in phases:
+        nuts_launches = phase_nuts_plate()
 
     print(card_line(), flush=True)
     if set(phases) != set(PHASES):
@@ -888,8 +1006,9 @@ def main(argv=None) -> int:
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
     emit({"kernels": [
+        # the plate kernel's calls on both of its paths: HMC and NUTS
         entry("normal_loglik_sum_value_and_grad", "nll", "normal_loglik_sum",
-              kernel_rows[MAIN_SHAPE], launches["nll"]),
+              kernel_rows[MAIN_SHAPE], launches["nll"] + nuts_launches["nll"]),
         entry("logsumexp", "lse", "logsumexp", smc_rows[("lse", N_PARTICLES)],
               smc_launches["lse"]),
         entry("systematic_resample", "resample", "systematic_resample",

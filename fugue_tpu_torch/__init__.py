@@ -1,9 +1,11 @@
 """fugue_tpu_torch: the PyTorch/CUDA port of fugue_tpu.
 
-Two engines run end to end on one device. Vectorized HMC: the model
-language, the trace/handler runtime, staging into a potential on
-unconstrained R^d, batched forces through ``torch.func``, the HMC drive
-with dual averaging and diagonal mass adaptation, split-R-hat/ESS
+Three engines run end to end on one device. Vectorized HMC and NUTS: the
+model language, the trace/handler runtime, staging into a potential on
+unconstrained R^d, batched forces through ``torch.func``, the HMC drive and
+the lock-step NUTS tree build with dual averaging and diagonal or dense
+mass adaptation, ``resume``, the incremental ``HmcSession`` and
+``NutsSession``, split-R-hat, rank-normalized R-hat, Geweke and ESS
 diagnostics, and the Gaussian-plate likelihood kernel in CUDA
 (``ops.kernels.pnormal_loglik_sum``). Adaptive SMC: a batched prior draw,
 the ESS-driven β ladder, single-site MH or HMC rejuvenation, and the
@@ -29,8 +31,17 @@ from .errors import (
 from .core.address import Address, addr, scoped_addr
 from .core.distributions import Distribution, LogNormal, Normal
 from .core.model import factor, guard, observe, sample
-from .inference.diagnostics import print_diagnostics, summarize_samples
-from .inference.hmc import HMCConfig, HMCResult, hmc_chain, hmc_transition
+from .inference.diagnostics import ParameterSummary, print_diagnostics, summarize_samples
+from .inference.hmc import HMCConfig, HMCResult, HmcSession, hmc_chain, hmc_transition
+from .inference.mcmc_utils import (
+    ess,
+    ess_multichain,
+    geweke,
+    r_hat,
+    rank_normalized_split_r_hat,
+    split_r_hat,
+)
+from .inference.nuts import NUTSConfig, NUTSResult, NutsSession, nuts_chain, nuts_transition
 from .inference.smc import SMCConfig, SMCResult, adaptive_smc, importance_reweight
 from .ops.kernels import pnormal_loglik_sum
 from .runtime.handler import Handler, run

@@ -1,10 +1,10 @@
 """Convergence diagnostics over batched sample tensors.
 
-The port of ``summarize_samples`` and ``print_diagnostics`` from
-``fugue_tpu/inference/diagnostics.py``: per-parameter mean, sd, quantiles,
-split-R-hat and multi-chain ESS, with the reference's verdict thresholds.
-Samples may live on any device; the summaries are computed in float64 on
-the CPU. The trace-list extractors wait for a later slice.
+The port of ``fugue_tpu/inference/diagnostics.py``: ``summarize_samples``
+and ``print_diagnostics`` (per-parameter mean, sd, quantiles, split-R-hat
+and multi-chain ESS, with the reference's verdict thresholds) and the
+trace-list extractors. Samples may live on any device; the summaries are
+computed in float64 on the CPU.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Dict, List, Sequence
 
+import numpy as np
 import torch
 
 from .mcmc_utils import ess_multichain, split_r_hat
@@ -115,3 +116,32 @@ def print_diagnostics(
     lines.append(verdict)
     print("\n".join(lines), file=file)
     return summaries
+
+
+# ---------------------------------------------------------------------------
+# Trace-list extractors: for code that holds handler-produced traces rather
+# than staged sample tensors
+# ---------------------------------------------------------------------------
+
+
+def _extract(traces: Sequence, address: str, get, cast) -> np.ndarray:
+    vals = []
+    for t in traces:
+        v = get(t, address)
+        if v is not None:
+            vals.append(cast(torch.as_tensor(v).item()))
+    return np.asarray(vals)
+
+
+def extract_real(traces: Sequence, address: str) -> np.ndarray:
+    """The real values at ``address`` in a sequence of traces (traces
+    without it, or with another kind there, are skipped)."""
+    return _extract(traces, address, lambda t, a: t.get_real(a), float)
+
+
+def extract_bool(traces: Sequence, address: str) -> np.ndarray:
+    return _extract(traces, address, lambda t, a: t.get_bool(a), bool)
+
+
+def extract_int(traces: Sequence, address: str) -> np.ndarray:
+    return _extract(traces, address, lambda t, a: t.get_int(a), int)

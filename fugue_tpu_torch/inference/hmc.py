@@ -1,9 +1,10 @@
 """Hamiltonian Monte Carlo over staged models, batched over chains.
 
 The port of the single-device HMC path of ``fugue_tpu/inference/hmc.py``:
-``HMCConfig``, dual averaging, Welford diagonal mass, ``leapfrog``,
-``hmc_transition``, ``find_reasonable_epsilon``, ``make_hmc_drive`` and
-``hmc_chain`` (fresh and ``init_position`` modes).
+``HMCConfig``, dual averaging, Welford diagonal and dense mass, the mass
+algebra, ``leapfrog`` and ``leapfrog_recorded``, ``hmc_transition``,
+``find_reasonable_epsilon``, ``make_hmc_drive``, ``hmc_chain`` (fresh,
+``init_position`` and ``resume`` modes) and ``HmcSession``.
 
 How it is expressed in PyTorch:
 
@@ -22,15 +23,17 @@ How it is expressed in PyTorch:
   per run.
 - Non-finite energies are masked (divergent, always rejected), which keeps
   float32 runs on the card from propagating a huge-but-finite proposal.
+- ``inv_mass`` is a (d,) vector (diagonal) or a (d, d) covariance Σ
+  (dense). On batched (C, d) momenta the dense velocity is ``p @ Σ`` (Σ is
+  symmetric), and momenta are drawn through the Cholesky factor of Σ.
 
-Dense mass (``HMCConfig.mass``), ``HmcSession``, ``leapfrog_recorded``,
-``resume`` and the sharded (``chain_axis``) drive wait for later slices.
+The sharded (``chain_axis``) drive waits for the parallel slice.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -59,6 +62,13 @@ class HMCConfig:
     # "uniform": z0 ~ U(-2, 2)^d in unconstrained space; "prior":
     # unconstrained prior draw
     init: str = "uniform"
+    # "diag": diagonal mass from cross-chain variances; "dense": full
+    # covariance mass (Cholesky-based kinetic energy)
+    mass: str = "diag"
+
+    def __post_init__(self):
+        if self.mass not in ("diag", "dense"):
+            raise ValueError(f"unknown mass {self.mass!r}; use 'diag' or 'dense'")
 
 
 # ---------------------------------------------------------------------------
@@ -107,7 +117,7 @@ def dual_averaging_update(
 
 
 # ---------------------------------------------------------------------------
-# Welford moments for diagonal mass adaptation
+# Welford moments for mass adaptation
 # ---------------------------------------------------------------------------
 
 
@@ -115,14 +125,14 @@ def dual_averaging_update(
 class WelfordState:
     count: float  # kept on the host: batch sizes are known there
     mean: Any  # (d,)
-    m2: Any  # (d,)
+    m2: Any  # (d,) elementwise squares, or (d, d) outer products (dense)
 
     @staticmethod
-    def init(dim: int, *, dtype, device) -> "WelfordState":
+    def init(dim: int, dense: bool = False, *, dtype, device) -> "WelfordState":
         return WelfordState(
             count=0.0,
             mean=torch.zeros((dim,), dtype=dtype, device=device),
-            m2=torch.zeros((dim,), dtype=dtype, device=device),
+            m2=torch.zeros((dim, dim) if dense else (dim,), dtype=dtype, device=device),
         )
 
 
@@ -131,11 +141,15 @@ def welford_push_batch(state: WelfordState, batch) -> WelfordState:
     parallel update)."""
     n_b = float(batch.shape[0])
     mean_b = torch.mean(batch, dim=0)
+    centered = batch - mean_b
     n_new = state.count + n_b
     delta = mean_b - state.mean
     mean_new = state.mean + delta * (n_b / n_new)
     w = state.count * n_b / n_new
-    m2_new = state.m2 + torch.sum((batch - mean_b) ** 2, dim=0) + w * delta**2
+    if state.m2.dim() == 2:
+        m2_new = state.m2 + centered.T @ centered + w * torch.outer(delta, delta)
+    else:
+        m2_new = state.m2 + torch.sum(centered**2, dim=0) + w * delta**2
     return WelfordState(count=n_new, mean=mean_new, m2=m2_new)
 
 
@@ -147,13 +161,29 @@ def welford_variance(state: WelfordState, regularize: bool = True):
     return torch.clamp(var, min=1e-10)
 
 
+def welford_covariance(state: WelfordState, regularize: bool = True):
+    """Dense covariance estimate with Stan-style shrinkage toward a scaled
+    identity (keeps the mass matrix positive definite at small counts)."""
+    cov = state.m2 / max(state.count - 1.0, 1.0)
+    eye = torch.eye(cov.shape[0], dtype=cov.dtype, device=cov.device)
+    if regularize:
+        n = state.count
+        cov = (n / (n + 5.0)) * cov + 1e-3 * (5.0 / (n + 5.0)) * eye
+    return cov + 1e-8 * eye
+
+
 # ---------------------------------------------------------------------------
-# Diagonal mass algebra: ``inv_mass`` is a (d,) vector
+# Mass algebra: ``inv_mass`` is a (d,) vector (diagonal) or a (d, d)
+# covariance estimate Σ (dense). Velocity = Σp, kinetic = ½ pᵀΣp, momentum
+# ~ N(0, Σ⁻¹) drawn through the Cholesky factor of Σ.
 # ---------------------------------------------------------------------------
 
 
 def mass_velocity(inv_mass, p):
-    return inv_mass * p
+    """Σp for momenta ``p`` of shape (..., d)."""
+    if inv_mass.dim() == 1:
+        return inv_mass * p
+    return p @ inv_mass  # (Σp)ᵀ = pᵀΣ: Σ is symmetric
 
 
 def mass_kinetic(inv_mass, p):
@@ -161,11 +191,31 @@ def mass_kinetic(inv_mass, p):
     return 0.5 * torch.sum(p * mass_velocity(inv_mass, p), dim=-1)
 
 
+def momentum_from_normal(inv_mass, z):
+    """Standard normal draws ``z`` (..., d) → momenta p ~ N(0, M):
+    z / sqrt(inv_mass) for a diagonal mass; for a dense Σ = L Lᵀ, p = L⁻ᵀ z,
+    the solution of p L = z row by row. ``cholesky_ex`` does not read its
+    error code back to the host."""
+    if inv_mass.dim() == 1:
+        return z / torch.sqrt(inv_mass)
+    chol = torch.linalg.cholesky_ex(inv_mass).L
+    d = inv_mass.shape[0]
+    p = torch.linalg.solve_triangular(chol, z.reshape(-1, d), upper=False, left=False)
+    return p.reshape(z.shape)
+
+
 def mass_draw_momentum(generator: torch.Generator, inv_mass, shape):
-    """p ~ N(0, M) for M⁻¹ = diag(inv_mass)."""
+    """p ~ N(0, M) of ``shape`` (..., d)."""
     z = torch.randn(shape, generator=generator, device=inv_mass.device,
                     dtype=inv_mass.dtype)
-    return z / torch.sqrt(inv_mass)
+    return momentum_from_normal(inv_mass, z)
+
+
+def identity_mass(d: int, dense: bool, *, dtype, device):
+    """The unit mass: eye(d) (dense) or ones(d) (diagonal)."""
+    if dense:
+        return torch.eye(d, dtype=dtype, device=device)
+    return torch.ones((d,), dtype=dtype, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -202,6 +252,27 @@ def leapfrog(force_fn, q, p, eps, n_steps: int, inv_mass, g=None):
         g, u = force_fn(q)
         p = p_half - 0.5 * e * g
     return q, p, g, u
+
+
+def leapfrog_recorded(force_fn, q, p, eps, n_steps: int, inv_mass, g=None):
+    """``leapfrog`` that also records the trajectory: returns ``(q, p, qs,
+    hs)`` with the positions ``qs`` (n_steps, C, d) and Hamiltonians ``hs``
+    (n_steps, C) after each step. The potential of each H comes with its
+    gradient from the same batched evaluation."""
+    if n_steps < 1:
+        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+    e = _per_chain(eps)
+    if g is None:
+        g, _ = force_fn(q)
+    qs, hs = [], []
+    for _ in range(n_steps):
+        p_half = p - 0.5 * e * g
+        q = q + e * mass_velocity(inv_mass, p_half)
+        g, u = force_fn(q)
+        p = p_half - 0.5 * e * g
+        qs.append(q)
+        hs.append(u + mass_kinetic(inv_mass, p))
+    return q, p, torch.stack(qs), torch.stack(hs)
 
 
 @dataclass
@@ -262,9 +333,12 @@ def hmc_transition(
 # ---------------------------------------------------------------------------
 
 
-def find_reasonable_epsilon(potential_fn, q, p, inv_mass, max_iters: int = 60):
-    """Double/halve eps until the acceptance of a one-step trajectory from
-    one chain's ``q`` (d,) with momentum ``p`` (d,) crosses 0.5.
+def find_reasonable_epsilon(potential_fn, q, p, inv_mass, max_iters: int = 60,
+                            n_steps: int = 1):
+    """Double/halve eps until the acceptance of an ``n_steps`` trajectory
+    from one chain's ``q`` (d,) with momentum ``p`` (d,) crosses 0.5.
+    ``n_steps=1`` is Hoffman-Gelman Alg 4 (used with dual averaging); a
+    session without adaptation passes its real trajectory length.
 
     A host loop (the JAX package's ``while_loop``): it reads one acceptance
     per iteration back from the device, once per run. Returns a 0-dim
@@ -275,7 +349,7 @@ def find_reasonable_epsilon(potential_fn, q, p, inv_mass, max_iters: int = 60):
     h0 = float(u0[0] + mass_kinetic(inv_mass, p1)[0])
 
     def log_accept(eps):
-        qe, pe, _, ue = leapfrog(force_fn, q1, p1, eps, 1, inv_mass, g0)
+        qe, pe, _, ue = leapfrog(force_fn, q1, p1, eps, n_steps, inv_mass, g0)
         la = h0 - float(ue[0] + mass_kinetic(inv_mass, pe)[0])
         return la if math.isfinite(la) else -math.inf
 
@@ -349,6 +423,27 @@ def constrain_positions(staged: StagedModel, positions):
 # ---------------------------------------------------------------------------
 
 
+def rescue_stuck(q, ema, generator: torch.Generator):
+    """Warmup-only cross-chain rescue: a chain whose acceptance EMA
+    collapsed (below 0.1) copies the position of a donor chain drawn with
+    probability ∝ its EMA."""
+    n_chains = q.shape[0]
+    donors = torch.multinomial(ema + 1e-6, n_chains, replacement=True, generator=generator)
+    return torch.where((ema < 0.1)[:, None], q[donors], q)
+
+
+def initial_step_size(config, potential, q0, generator, inv_mass, eps_over=None):
+    """The run's first step size: ``eps_over`` (a resumed run's), else the
+    configured one, else the reasonable-epsilon search from chain 0."""
+    dt, dev = q0.dtype, q0.device
+    if eps_over is not None:
+        return torch.as_tensor(eps_over, dtype=dt, device=dev).reshape(())
+    if config.step_size is not None:
+        return torch.tensor(config.step_size, dtype=dt, device=dev)
+    p = mass_draw_momentum(generator, inv_mass, (q0.shape[1],))
+    return find_reasonable_epsilon(potential, q0[0], p, inv_mass)
+
+
 def make_hmc_drive(
     staged: StagedModel,
     config: HMCConfig,
@@ -356,28 +451,30 @@ def make_hmc_drive(
     n_samples: int,
     n_warmup: int,
 ):
-    """Build ``drive(q0, generator) → (q_f, qs, ljs, aps, divs, eps, inv_mass)``.
+    """Build ``drive(q0, generator, eps_over=None, inv_mass_over=None) →
+    (q_f, qs, ljs, aps, divs, eps, inv_mass)``.
 
     Warmup: two windows of dual averaging on the cross-chain mean
-    acceptance; at the midpoint the diagonal mass becomes the regularized
-    Welford variance of the first window and the step size restarts from
-    its averaged value. After each window, chains whose acceptance EMA
-    collapsed copy a donor chain (``rescue_stuck``). Sampling then runs at
-    the averaged step size. ``qs`` is (n_samples, C, d); ``ljs``, ``aps``
-    and ``divs`` are (n_samples, C).
+    acceptance; at the midpoint the mass becomes the regularized Welford
+    variance (diagonal) or covariance (dense) of the first window and the
+    step size restarts from its averaged value. After each window, chains
+    whose acceptance EMA collapsed copy a donor chain (``rescue_stuck``).
+    Sampling then runs at the averaged step size. ``qs`` is (n_samples, C,
+    d); ``ljs``, ``aps`` and ``divs`` are (n_samples, C). ``eps_over`` and
+    ``inv_mass_over`` replace the initial step size and mass (resume).
     """
     d = staged.dim
     potential = staged.potential
     L = config.n_leapfrog
+    dense = config.mass == "dense"
 
-    def drive(q0, generator: torch.Generator):
+    def drive(q0, generator: torch.Generator, eps_over=None, inv_mass_over=None):
         dt, dev = q0.dtype, q0.device
-        im0 = torch.ones((d,), dtype=dt, device=dev)
-        if config.step_size is not None:
-            eps0 = torch.tensor(config.step_size, dtype=dt, device=dev)
+        if inv_mass_over is None:
+            im0 = identity_mass(d, dense, dtype=dt, device=dev)
         else:
-            p = mass_draw_momentum(generator, im0, (d,))
-            eps0 = find_reasonable_epsilon(potential, q0[0], p, im0)
+            im0 = torch.as_tensor(inv_mass_over, dtype=dt, device=dev)
+        eps0 = initial_step_size(config, potential, q0, generator, im0, eps_over)
 
         def uniform(shape):
             return torch.rand(shape, generator=generator, device=dev, dtype=dt)
@@ -391,7 +488,7 @@ def make_hmc_drive(
                                   config.max_delta_energy)
 
         def warm_window(q, da, inv_mass, n_steps):
-            welford = WelfordState.init(d, dtype=dt, device=dev)
+            welford = WelfordState.init(d, dense, dtype=dt, device=dev)
             ema = torch.full((n_chains,), 0.5, dtype=dt, device=dev)
             for _ in range(n_steps):
                 if config.adapt_step_size:
@@ -403,22 +500,14 @@ def make_hmc_drive(
                                            config.target_accept)
                 welford = welford_push_batch(welford, q)
                 ema = 0.9 * ema + 0.1 * info.accept_prob
-            return rescue_stuck(q, ema), da, welford
-
-        def rescue_stuck(q, ema):
-            """Warmup-only cross-chain rescue: a chain whose acceptance EMA
-            collapsed copies the position of a donor chain drawn with
-            probability ∝ its EMA."""
-            donors = torch.multinomial(ema + 1e-6, n_chains, replacement=True,
-                                       generator=generator)
-            return torch.where((ema < 0.1)[:, None], q[donors], q)
+            return rescue_stuck(q, ema, generator), da, welford
 
         q, da, inv_mass = q0, DualAveragingState.init(eps0), im0
         if n_warmup > 0:
             n_half = n_warmup // 2
             q, da, welford = warm_window(q, da, inv_mass, max(n_half, 1))
             if config.adapt_mass:
-                inv_mass = welford_variance(welford)
+                inv_mass = welford_covariance(welford) if dense else welford_variance(welford)
                 da = DualAveragingState.init(torch.exp(da.log_eps_bar))
             q, da, _ = warm_window(q, da, inv_mass, max(n_warmup - n_half, 1))
         # adaptation off -> the configured eps (da.log_eps moves regardless)
@@ -454,6 +543,31 @@ class HMCResult:
     final_positions: Any
 
 
+def start_positions(staged: StagedModel, generator, n_chains, init, resume,
+                    init_position, init_jitter):
+    """The (n_chains, d) positions ``hmc_chain`` and ``nuts_chain`` start
+    from: a resumed run's final positions, a warm start, or fresh ``init``
+    positions. ``resume`` and ``init_position`` exclude each other."""
+    if resume is not None and init_position is not None:
+        raise ValueError(
+            "pass either resume= or init_position=, not both — resume "
+            "continues from its own final positions and would silently "
+            "ignore the warm start"
+        )
+    if resume is not None:
+        q = torch.as_tensor(resume.final_positions).to(
+            device=staged.device, dtype=settings.real_dtype())
+        if tuple(q.shape) != (n_chains, staged.dim):
+            raise ValueError(
+                f"resume positions {tuple(q.shape)} do not match "
+                f"(n_chains={n_chains}, d={staged.dim})"
+            )
+        return q
+    if init_position is not None:
+        return _warm_start_batch(staged, generator, n_chains, init_position, init_jitter)
+    return initial_positions(staged, generator, n_chains, init)
+
+
 def hmc_chain(
     seed: int,
     model_fn: Optional[Callable] = None,
@@ -465,6 +579,7 @@ def hmc_chain(
     model_args: tuple = (),
     staged: Optional[StagedModel] = None,
     device="cuda",
+    resume: Optional[Any] = None,
     init_position: Optional[Any] = None,
     init_jitter: float = 0.05,
 ) -> HMCResult:
@@ -473,6 +588,12 @@ def hmc_chain(
     ``seed`` seeds one ``torch.Generator`` on the staged model's device,
     which draws every initial position, momentum, jitter and accept
     uniform. ``device`` is used only when ``staged`` is not given.
+
+    ``resume``: a previous ``HMCResult`` (or any object with
+    ``final_positions``, ``step_size`` and ``inv_mass``, such as
+    ``interop.hmc_state_from_numpy`` of a JAX result): sampling continues
+    from its final state with its step size and mass; warmup is skipped and
+    adaptation frozen.
 
     ``init_position``: warm-start unconstrained position(s) — a ``(d,)``
     point broadcast to all chains with per-chain Gaussian jitter of scale
@@ -484,12 +605,15 @@ def hmc_chain(
     if staged.dim == 0:
         raise ValueError("model has no continuous latent sites")
     generator = torch.Generator(device=staged.device).manual_seed(int(seed))
-    if init_position is None:
-        q0 = initial_positions(staged, generator, n_chains, config.init)
-    else:
-        q0 = _warm_start_batch(staged, generator, n_chains, init_position, init_jitter)
+    q0 = start_positions(staged, generator, n_chains, config.init, resume,
+                         init_position, init_jitter)
+    overrides = {}
+    if resume is not None:
+        config = replace(config, step_size=None, adapt_step_size=False, adapt_mass=False)
+        n_warmup = 0
+        overrides = dict(eps_over=resume.step_size, inv_mass_over=resume.inv_mass)
     drive = make_hmc_drive(staged, config, n_chains, n_samples, n_warmup)
-    q_f, qs, ljs, aps, divs, eps_final, inv_mass_f = drive(q0, generator)
+    q_f, qs, ljs, aps, divs, eps_final, inv_mass_f = drive(q0, generator, **overrides)
 
     positions = qs.movedim(0, 1)  # (n_chains, n_samples, d)
     return HMCResult(
@@ -502,3 +626,120 @@ def hmc_chain(
         inv_mass=inv_mass_f,
         final_positions=q_f,
     )
+
+
+# ---------------------------------------------------------------------------
+# Incremental session
+# ---------------------------------------------------------------------------
+
+
+def draw_seed(generator: torch.Generator) -> int:
+    """One int seed from ``generator`` (a host read)."""
+    return int(torch.randint(0, 2**62, (1,), generator=generator, device=generator.device))
+
+
+class HmcSession:
+    """Stateful incremental HMC for one chain: step-by-step transitions with
+    live control (step size, trajectory length), trajectory recording and
+    state inspection.
+
+    Holds (position, step_size, inv_mass) and a ``torch.Generator`` seeded
+    by ``seed``; the position is a (d,) tensor on the staged model's
+    device. Each call reads its results back to the host."""
+
+    def __init__(
+        self,
+        seed: int,
+        model_fn: Optional[Callable] = None,
+        config: HMCConfig = HMCConfig(),
+        *,
+        staged: Optional[StagedModel] = None,
+        model_args: tuple = (),
+        device="cuda",
+    ):
+        self.staged = staged if staged is not None else stage(model_fn, *model_args,
+                                                               device=device)
+        if self.staged.dim == 0:
+            raise ValueError("model has no continuous latent sites")
+        self.config = config
+        dt, dev = settings.real_dtype(), self.staged.device
+        self._generator = torch.Generator(device=dev).manual_seed(int(seed))
+        self._q = self.staged.initial_position(draw_seed(self._generator)).to(dt)
+        self.inv_mass = torch.ones((self.staged.dim,), dtype=dt, device=dev)
+        if config.step_size is not None:
+            self.step_size = float(config.step_size)
+        else:
+            # search along the session's real trajectory length: no dual
+            # averaging runs afterwards, so the one-step estimate can be
+            # unstable at L steps
+            p = mass_draw_momentum(self._generator, self.inv_mass, (self.staged.dim,))
+            self.step_size = float(find_reasonable_epsilon(
+                self.staged.potential, self._q, p, self.inv_mass,
+                n_steps=config.n_leapfrog))
+        self.n_leapfrog = config.n_leapfrog
+
+    def _noise(self):
+        """(momenta (1, d), accept log-uniform (1,)) for the next transition."""
+        p = mass_draw_momentum(self._generator, self.inv_mass, (1, self.staged.dim))
+        u = torch.rand((1,), generator=self._generator, device=self._q.device,
+                       dtype=self._q.dtype)
+        return p, torch.log1p(-u)
+
+    def warmup(self, n_steps: int = 100) -> None:
+        """Adapt the step size in place with dual averaging (the session
+        analog of ``hmc_chain``'s warmup)."""
+        da = DualAveragingState.init(torch.tensor(self.step_size, dtype=torch.float64))
+        for _ in range(n_steps):
+            info = self.step()
+            da = dual_averaging_update(da, info.accept_prob.double().cpu(),
+                                       self.config.target_accept)
+            self.step_size = float(torch.exp(da.log_eps))
+        self.step_size = float(torch.exp(da.log_eps_bar))
+
+    def set_step_size(self, eps: float) -> None:
+        self.step_size = float(eps)
+
+    def set_n_leapfrog(self, n: int) -> None:
+        self.n_leapfrog = int(n)
+
+    @property
+    def position(self):
+        return self._q
+
+    def current_trace(self):
+        """Constrained values + density parts at the current position."""
+        cont, _ = self.staged.constrain(self._q)
+        return self.staged.replay_trace(cont)
+
+    def step(self) -> HmcStepInfo:
+        """One transition; the returned fields are 0-dim tensors."""
+        p, log_u = self._noise()
+        q_new, info = hmc_transition(self.staged.potential, self._q[None], p, log_u,
+                                     self.step_size, self.n_leapfrog, self.inv_mass,
+                                     self.config.max_delta_energy)
+        self._q = q_new[0]
+        return HmcStepInfo(**{k: v[0] for k, v in vars(info).items()})
+
+    def step_recorded(self):
+        """One transition returning the full trajectory (positions and
+        Hamiltonians per leapfrog step) for animation and diagnostics."""
+        p, log_u = self._noise()
+        q, im, eps = self._q[None], self.inv_mass, self.step_size
+        force_fn = batched_force(self.staged.potential)
+        g0, u0 = force_fn(q)
+        h0 = u0 + mass_kinetic(im, p)
+        q_new, p_new, qs, hs = leapfrog_recorded(force_fn, q, p, eps, self.n_leapfrog, im, g0)
+        delta = h0 - hs[-1]
+        divergent = (~torch.isfinite(delta)) | (-delta > self.config.max_delta_energy)
+        accepted = (~divergent) & (log_u < delta)
+        ap = torch.where(divergent, torch.zeros_like(delta),
+                         torch.clamp(torch.exp(torch.clamp(delta, max=50.0)), max=1.0))
+        self._q = torch.where(accepted[:, None], q_new, q)[0]
+        return {
+            "accepted": bool(accepted[0]),
+            "divergent": bool(divergent[0]),
+            "accept_prob": float(ap[0]),
+            "trajectory": qs[:, 0].cpu().numpy(),
+            "hamiltonians": hs[:, 0].cpu().numpy(),
+            "initial_energy": float(h0[0]),
+        }

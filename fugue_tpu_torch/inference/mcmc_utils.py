@@ -1,10 +1,10 @@
 """MCMC estimation utilities: autocovariance, ESS, R-hat and adaptation.
 
-The port of ``autocovariance``, ``_geyer_tau``, ``ess``, ``ess_multichain``,
-``r_hat``, ``split_r_hat``, ``AdaptationState`` and ``adapt_update`` from
-``fugue_tpu/inference/mcmc_utils.py``. Every estimator is batched over
-leading dimensions; autocovariances for all lags come from one ``torch.fft``
-transform. Rank-normalized R-hat and Geweke wait for a later slice.
+The port of ``fugue_tpu/inference/mcmc_utils.py``: ``autocovariance``,
+``_geyer_tau``, ``ess``, ``ess_multichain``, ``r_hat``, ``split_r_hat``,
+rank-normalized split-R-hat, Geweke, ``AdaptationState`` and
+``adapt_update``. Every estimator is batched over leading dimensions;
+autocovariances for all lags come from one ``torch.fft`` transform.
 """
 
 from __future__ import annotations
@@ -107,6 +107,61 @@ def split_r_hat(chains):
     half = n // 2
     split = torch.cat([x[..., :half], x[..., n - half : n]], dim=-2)
     return r_hat(split)
+
+
+def _rank_normalize(chains):
+    """Pooled draws → normal scores: r_i = rank over ALL chains' draws,
+    z_i = Phi^-1((r_i - 3/8) / (S + 1/4)) (Blom offsets; Vehtari et al.
+    2021 eq. 14). Ties rank in order of appearance (stable sorts)."""
+    x = _float(chains)
+    shape = x.shape
+    flat = x.reshape(*shape[:-2], shape[-2] * shape[-1])
+    order = torch.argsort(flat, dim=-1, stable=True)
+    ranks = torch.argsort(order, dim=-1, stable=True).to(flat.dtype) + 1.0
+    s = flat.shape[-1]
+    return torch.special.ndtri((ranks - 0.375) / (s + 0.25)).reshape(shape)
+
+
+def rank_normalized_split_r_hat(chains):
+    """Rank-normalized split-R-hat (Vehtari, Gelman, Simpson, Carpenter &
+    Bürkner 2021): ``max(bulk, tail)``, where bulk is split-R-hat of the
+    rank-normal scores and tail that of the scores of the folded draws
+    |x - median|. ``chains``: (..., m, n) → (...,)."""
+    x = _float(chains)
+    bulk = split_r_hat(_rank_normalize(x))
+    med = torch.quantile(x.reshape(*x.shape[:-2], -1), 0.5, dim=-1)[..., None, None]
+    tail = split_r_hat(_rank_normalize(torch.abs(x - med)))
+    return torch.maximum(bulk, tail)
+
+
+# ---------------------------------------------------------------------------
+# Geweke diagnostic
+# ---------------------------------------------------------------------------
+
+
+def _spectral_var(x):
+    """Autocorrelation-consistent (spectral density at zero) variance of the
+    mean estimator, from the same Geyer-truncated autocovariance sum."""
+    n = x.shape[-1]
+    acov = autocovariance(x)
+    var0 = acov[..., :1]
+    rho = torch.where(var0 > 0, acov / torch.where(var0 > 0, var0, torch.ones_like(var0)),
+                      torch.zeros_like(acov))
+    return var0[..., 0] * _geyer_tau(rho) / n
+
+
+def geweke(x, first: float = 0.1, last: float = 0.5):
+    """Geweke z-score of the early against the late segment mean, with
+    spectral standard errors. ``x``: (..., n) → (...,); |z| < 2 indicates
+    stationarity."""
+    x = _float(x)
+    n = x.shape[-1]
+    na = max(int(n * first), 2)
+    nb = max(int(n * last), 2)
+    a, b = x[..., :na], x[..., n - nb :]
+    denom = torch.sqrt(_spectral_var(a) + _spectral_var(b))
+    return (torch.mean(a, dim=-1) - torch.mean(b, dim=-1)) / torch.where(
+        denom > 0, denom, torch.ones_like(denom))
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,12 @@
 """Carry chain state and data over from numpy arrays.
 
 The counterpart of a model's weights here is chain state and data. The JAX
-package's ``HMCResult`` holds ``final_positions`` (C, d), ``step_size`` and
-``inv_mass`` (d,) in the same address-sorted flat unconstrained layout as
-this package's ``StagedModel``, so a state warmed up there continues here
-(``hmc_transition``, or ``hmc_chain(init_position=state.positions)``) once
-it is converted with ``np.asarray`` and ``hmc_state_from_numpy``.
+package's ``HMCResult`` and ``NUTSResult`` hold ``final_positions`` (C, d),
+``step_size`` and ``inv_mass`` ((d,) diagonal or (d, d) dense) in the same
+address-sorted flat unconstrained layout as this package's ``StagedModel``,
+so a state warmed up there continues here once it is converted with
+``np.asarray`` and ``hmc_state_from_numpy``: ``hmc_chain(resume=state)`` or
+``nuts_chain(resume=state)`` samples on with its step size and mass.
 
 Likewise the JAX ``SMCResult.state`` of a ladder stopped at
 ``max_stages`` (particles, log-weights, log-likelihoods, β, log Z, the
@@ -31,7 +32,12 @@ from .inference.smc import SMCState
 class HMCState:
     positions: torch.Tensor  # (C, d) unconstrained
     step_size: torch.Tensor  # 0-dim
-    inv_mass: torch.Tensor  # (d,) diagonal
+    inv_mass: torch.Tensor  # (d,) diagonal or (d, d) dense
+
+    @property
+    def final_positions(self) -> torch.Tensor:
+        """The positions under the name ``resume=`` reads."""
+        return self.positions
 
 
 def tensor_from_numpy(array, *, device="cuda", dtype=None) -> torch.Tensor:
@@ -43,13 +49,14 @@ def tensor_from_numpy(array, *, device="cuda", dtype=None) -> torch.Tensor:
 
 def hmc_state_from_numpy(positions, step_size, inv_mass, *, device="cuda",
                          dtype=torch.float32) -> HMCState:
-    """A warmed HMC state from numpy arrays, checked for matching shapes."""
+    """A warmed HMC or NUTS state from numpy arrays, checked for matching
+    shapes: positions (C, d), inv_mass (d,) or (d, d)."""
     q = tensor_from_numpy(positions, device=device, dtype=dtype)
     im = tensor_from_numpy(inv_mass, device=device, dtype=dtype)
-    if q.dim() != 2 or im.shape != (q.shape[1],):
+    if q.dim() != 2 or tuple(im.shape) not in ((q.shape[1],), (q.shape[1], q.shape[1])):
         raise ValueError(
             f"positions {tuple(q.shape)} must be (C, d) and inv_mass "
-            f"{tuple(im.shape)} must be (d,): only a diagonal mass carries over"
+            f"{tuple(im.shape)} must be (d,) or (d, d)"
         )
     eps = tensor_from_numpy(np.asarray(step_size, dtype=np.float64).reshape(()),
                             device=device, dtype=dtype)

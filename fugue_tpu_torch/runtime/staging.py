@@ -150,6 +150,19 @@ class StagedModel:
     def log_joint(self, latents: Dict[str, Any]):
         return self.log_density_parts(latents).total()
 
+    def prior_trace(self, seed: int):
+        """The whole trace of one prior run."""
+        return self._run(PriorHandler(seed, self.device))[1]
+
+    def replay(self, latents: Dict[str, Any]):
+        """Replay with the given latents → (model return value, trace)."""
+        return self._run(ValuesHandler(latents))
+
+    def replay_trace(self, latents: Dict[str, Any]):
+        """The trace of a replay with the given latents: values and the
+        three density accumulators."""
+        return self._run(ValuesHandler(latents))[1]
+
     # -- flat constrained layout (single-site MH proposes here) ------------
 
     def flatten_constrained(self, latents: Dict[str, Any]):

@@ -4,7 +4,7 @@ The port of ``fugue_tpu/runtime/trace.py``: choices hold tensors (batched
 under ``vmap``), and the three log-weight accumulators keep the reference
 split ``log_prior + log_likelihood + log_factors = total_log_weight``.
 Insertion order is preserved; staging orders sites by address. The typed
-getters wait for the handlers that read them back.
+getters return ``None`` for a missing address or another kind.
 """
 
 from __future__ import annotations
@@ -59,6 +59,21 @@ class Trace:
     def insert_choice(self, addr: str, choice: Choice) -> None:
         """Record a choice; duplicate detection is the handler's job."""
         self.choices[str(addr)] = choice
+
+    def _get_kind(self, addr, kind: str):
+        c = self.choices.get(str(addr))
+        if c is None or c.kind != kind:
+            return None
+        return c.value
+
+    def get_real(self, addr):
+        return self._get_kind(addr, KIND_REAL)
+
+    def get_bool(self, addr):
+        return self._get_kind(addr, KIND_BOOL)
+
+    def get_int(self, addr):
+        return self._get_kind(addr, KIND_INT)
 
     def latents(self) -> Dict[str, Any]:
         return {a: c.value for a, c in self.choices.items() if not c.is_observed}

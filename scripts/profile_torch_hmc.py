@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time goes in one HMC transition of the PyTorch port, on a GPU.
+"""Where the time goes in one HMC or NUTS transition of the PyTorch port, on a GPU.
 
-    python3 scripts/profile_torch_hmc.py [--out DIR]
+    python3 scripts/profile_torch_hmc.py [--engine hmc|nuts] [--out DIR]
 
 For chip_smoke.py's two models at its shapes, eight-schools (1024 chains,
 L=32) and the 2^20-row Gaussian plate (64 chains, L=16): it times transitions with CUDA
@@ -13,6 +13,12 @@ traced device time per transition over the wall time per transition
 measured without the profiler, whose own host overhead lengthens the traced
 window; the traced window's share is printed beside it. One JSON line
 per model on stdout; the full ``key_averages`` tables go to ``--out``.
+
+``--engine nuts`` runs NUTS transitions (max_depth 8, unit diagonal mass,
+the same fixed step sizes) and reports per lock-step leaf instead of per
+gradient: each leaf is one batched value-and-grad with the tree's
+bookkeeping, and the root's evaluation counts as one more leaf. It also
+reports the leaves per transition and the host syncs per leaf.
 Needs a CUDA device; imports no JAX.
 """
 
@@ -32,18 +38,28 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import fugue_tpu_torch as ftt  # noqa: E402
 from chip_smoke import eight_schools_model, plate_data, plate_model  # noqa: E402
-from fugue_tpu_torch.inference import hmc  # noqa: E402
+from fugue_tpu_torch.inference import hmc, nuts  # noqa: E402
+
+MAX_DEPTH = 8
 
 
-def profile_model(name, model, n_chains, n_leapfrog, eps, out_dir):
+def profile_model(name, model, n_chains, n_leapfrog, eps, out_dir, engine="hmc"):
     staged = ftt.stage(model, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(0)
     q = hmc.initial_positions(staged, g, n_chains, "uniform")
     inv_mass = torch.ones(staged.dim, device="cuda")
+    counts = {"evals": 0, "syncs": 0}  # batched evaluations and host syncs
 
     def transition(q):
+        if engine == "nuts":
+            noise = nuts.draw_nuts_noise(g, inv_mass, n_chains, MAX_DEPTH)
+            q, info = nuts.nuts_transition(staged.potential, q, noise, eps, inv_mass, MAX_DEPTH)
+            counts["evals"] += info["leaves"] + 1
+            counts["syncs"] += info["host_syncs"]
+            return q
         p = hmc.mass_draw_momentum(g, inv_mass, q.shape)
         log_u = torch.log1p(-torch.rand(n_chains, generator=g, device="cuda"))
+        counts["evals"] += n_leapfrog + 1
         return hmc.hmc_transition(staged.potential, q, p, log_u, eps, n_leapfrog,
                                   inv_mass)[0]
 
@@ -51,13 +67,16 @@ def profile_model(name, model, n_chains, n_leapfrog, eps, out_dir):
         q = transition(q)
     torch.cuda.synchronize()
     n_timed = 5
+    counts.update(evals=0, syncs=0)
     t0 = time.perf_counter()
     for _ in range(n_timed):
         q = transition(q)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / n_timed
+    timed_evals = counts["evals"]
 
     n_traced = 2
+    counts.update(evals=0, syncs=0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_traced):
@@ -70,26 +89,38 @@ def profile_model(name, model, n_chains, n_leapfrog, eps, out_dir):
     for e in kernels:
         per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    evals = n_traced * (n_leapfrog + 1)
+    evals = counts["evals"]
+    # the idle share compares device time per evaluation with the untraced
+    # wall per evaluation (NUTS transitions differ in length)
+    wall_per_eval = wall * n_timed / timed_evals
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"{name}_key_averages.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"{name}_{engine}_key_averages.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=60))
-    return {
-        "model": name, "chains": n_chains, "n_leapfrog": n_leapfrog,
-        "transition_ms": wall * 1e3,
-        "ms_per_batched_gradient": wall * 1e3 / (n_leapfrog + 1),
-        "kernels_per_batched_gradient": len(kernels) / evals,
-        "device_us_per_batched_gradient": busy_us / evals,
-        "device_idle_share": 1.0 - busy_us * 1e-6 / (n_traced * wall),
+    unit = "lockstep_leaf" if engine == "nuts" else "batched_gradient"
+    row = {
+        "model": name, "engine": engine, "chains": n_chains, "transition_ms": wall * 1e3,
+        f"ms_per_{unit}": wall_per_eval * 1e3,
+        f"kernels_per_{unit}": len(kernels) / evals,
+        f"device_us_per_{unit}": busy_us / evals,
+        "device_idle_share": 1.0 - busy_us * 1e-6 / (evals * wall_per_eval),
         "device_idle_share_under_profiler": 1.0 - busy_us * 1e-6 / traced_wall,
-        "top_kernels_us_per_gradient": [[k[:80], v / evals] for k, v in top],
+        "top_kernels_us_per_" + ("lockstep_leaf" if engine == "nuts" else "gradient"):
+            [[k[:80], v / evals] for k, v in top],
     }
+    if engine == "nuts":
+        row.update(max_depth=MAX_DEPTH, leaves_per_transition=timed_evals / n_timed - 1,
+                   host_syncs_per_leaf=counts["syncs"] / (evals - n_traced))
+    else:
+        row["n_leapfrog"] = n_leapfrog
+    return row
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="profile_out",
                     help="directory for the key_averages tables")
+    ap.add_argument("--engine", choices=("hmc", "nuts"), default="hmc",
+                    help="profile HMC transitions (L fixed) or NUTS transitions")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_hmc: no CUDA device")
@@ -97,7 +128,7 @@ def main(argv=None):
         ("eight_schools", eight_schools_model("cuda"), 1024, 32, 0.3),
         ("gaussian_plate", plate_model(plate_data(1 << 20)), 64, 16, 0.001),
     ):
-        print(json.dumps(profile_model(name, model, c, L, eps, args.out)), flush=True)
+        print(json.dumps(profile_model(name, model, c, L, eps, args.out, args.engine)), flush=True)
     return 0
 
 

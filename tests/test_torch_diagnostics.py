@@ -1,13 +1,15 @@
 """Parity of the PyTorch port's convergence diagnostics with fugue_tpu.
 
-split-R-hat, R-hat, single-chain ESS, multi-chain ESS and the summary table
-on a fixed (4, 500) array of autocorrelated draws made with numpy, in
-float64. Tolerance 1e-8 relative: the FFT autocovariances of torch and
+split-R-hat, R-hat, rank-normalized split-R-hat, Geweke, single-chain ESS,
+multi-chain ESS and the summary table on a fixed (4, 500) array of
+autocorrelated draws made with numpy (and Cauchy chains), in float64; the
+trace-list extractors on traces built the same way in both packages. Tolerance 1e-8 relative: the FFT autocovariances of torch and
 XLA round differently, and Geyer's truncation sums a few hundred lags.
 """
 
 import io
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -81,3 +83,69 @@ def test_print_diagnostics_table():
     assert buf_t.getvalue() == buf_j.getvalue()
     with pytest.raises(ValueError):
         tdiag.summarize_samples({"x": torch.zeros(5)})
+
+
+def _heavy(seed=4):
+    """Cauchy chains, one with twice the scale: bulk and tail disagree."""
+    x = np.random.default_rng(seed).standard_cauchy((4, 400))
+    x[1] *= 2.0
+    return x
+
+
+@pytest.mark.parametrize("name", ["fixed", "batched", "heavy_tailed", "with_ties"])
+def test_rank_normalized_split_r_hat_matches_jax(name):
+    if name == "fixed":
+        x = FIXED
+    elif name == "batched":
+        x = np.stack([_chains(seed=s, phi=p) for s, p in ((1, 0.0), (2, 0.9), (3, -0.5))])
+    elif name == "heavy_tailed":
+        x = _heavy()
+    else:
+        x = np.round(FIXED, 1)  # many equal draws: ranks break ties in order
+    got = tm.rank_normalized_split_r_hat(torch.as_tensor(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jm.rank_normalized_split_r_hat(x)), **TOL)
+    np.testing.assert_allclose(tm._rank_normalize(torch.as_tensor(x)).numpy(),
+                               np.asarray(jm._rank_normalize(x)), **TOL)
+
+
+@pytest.mark.parametrize("first, last", [(0.1, 0.5), (0.2, 0.3), (0.001, 0.001)])
+def test_geweke_matches_jax(first, last):
+    x = np.concatenate([FIXED, FIXED[:, ::-1]], axis=0)
+    got = tm.geweke(torch.as_tensor(x), first, last).numpy()
+    np.testing.assert_allclose(got, np.asarray(jm.geweke(x, first, last)), **TOL)
+    np.testing.assert_allclose(tm._spectral_var(torch.as_tensor(x)).numpy(),
+                               np.asarray(jm._spectral_var(jnp.asarray(x))), **TOL)
+
+
+def test_geweke_flags_a_drifting_chain():
+    drift = FIXED[0] + np.linspace(0.0, 5.0, FIXED.shape[1])
+    z = tm.geweke(torch.as_tensor(np.stack([FIXED[0], drift]))).numpy()
+    assert abs(z[0]) < 2.0 < abs(z[1])
+    assert tm.geweke(torch.ones(50)).item() == 0.0
+
+
+def _traces(pkg, kind):
+    """Three traces with real, bool and int choices at a few addresses."""
+    tensor = (lambda v: torch.tensor(v)) if kind == "torch" else (lambda v: jnp.asarray(v))
+    out = []
+    for i in range(3):
+        t = pkg.Trace()
+        t.insert_choice("x", pkg.Choice(value=tensor(0.5 * i), log_prob=tensor(-1.0)))
+        t.insert_choice("flag", pkg.Choice(value=tensor(i % 2 == 0), log_prob=tensor(-0.7)))
+        if i != 1:
+            t.insert_choice("k", pkg.Choice(value=tensor(3 * i), log_prob=tensor(-2.0)))
+        out.append(t)
+    return out
+
+
+def test_extractors_match_jax():
+    from fugue_tpu.runtime import trace as jtrace
+    from fugue_tpu_torch.runtime import trace as ttrace
+
+    tt, jt = _traces(ttrace, "torch"), _traces(jtrace, "jax")
+    for fn, addr in (("extract_real", "x"), ("extract_bool", "flag"), ("extract_int", "k"),
+                     ("extract_real", "flag"), ("extract_int", "missing")):
+        got = getattr(tdiag, fn)(tt, addr)
+        want = getattr(jdiag, fn)(jt, addr)
+        assert got.dtype == want.dtype and got.tolist() == want.tolist(), (fn, addr)
+    assert tdiag.extract_int(tt, "k").tolist() == [0, 6]

@@ -1,4 +1,4 @@
-"""The PyTorch port's HMC and SMC paths on a CUDA device.
+"""The PyTorch port's HMC, NUTS and SMC paths on a CUDA device.
 
 Every test here is marked ``gpu`` and skips without a card. The file imports
 no JAX, so it runs on a machine with a card and no JAX, past the suite's
@@ -25,7 +25,7 @@ from torch.func import grad_and_value, vmap
 import fugue_tpu_torch as ftt
 from chip_smoke import capture, conjugate_evidence_model, eight_schools_model, plate_model
 from fugue_tpu_torch import settings
-from fugue_tpu_torch.inference import hmc
+from fugue_tpu_torch.inference import hmc, nuts
 from fugue_tpu_torch.ops import kernels as K
 
 TOL = dict(rtol=1e-10, atol=1e-10)
@@ -127,6 +127,38 @@ def test_short_chain_on_cuda():
     mu = res.samples["mu"]
     assert mu.is_cuda and mu.shape == (64, 60) and bool(torch.isfinite(mu).all())
     assert res.final_positions.is_cuda and 0.0 < res.step_size < 10.0
+
+
+def test_short_nuts_chain_on_cuda():
+    """A short NUTS run on the plate model: the kernel is called once per
+    batched model run, the draws stay on the card, and one NUTS transition
+    equals the same transition on the CPU."""
+    model_runs = [0]
+    n = (1 << 16) + 5
+    y = torch.as_tensor(np.random.default_rng(0).normal(1.5, 2.0, n), device="cuda")
+    staged = ftt.stage(plate_model(y, model_runs), device="cuda")
+    model_runs[0], before = 0, K.LAUNCHES["nll"]  # after the discovery run
+    res = ftt.nuts_chain(0, staged=staged, n_samples=20, n_warmup=30, n_chains=16,
+                         config=ftt.NUTSConfig(max_depth=6),
+                         init_position=torch.stack([y.mean(), y.std().log()]))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["nll"] - before == model_runs[0] > 0
+    mu = res.samples["mu"]
+    assert mu.is_cuda and mu.shape == (16, 20) and bool(torch.isfinite(mu).all())
+    assert res.n_leapfrogs > 0 and res.lockstep_leaves >= res.n_leapfrogs / 16
+    assert res.host_syncs <= res.lockstep_leaves
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st = _plate(dev)
+        g = torch.Generator().manual_seed(1)
+        q = torch.as_tensor(_inputs(st.dim)[0], device=dev)
+        im = torch.ones(st.dim, dtype=torch.float64)
+        noise = nuts.draw_nuts_noise(g, im, q.shape[0], 6)
+        noise = nuts.NutsNoise(**{k: v.to(dev) for k, v in vars(noise).items()})
+        out[dev] = nuts.nuts_transition(st.potential, q, noise, 0.002, im.to(dev), 6)
+    np.testing.assert_allclose(out["cuda"][0].cpu().numpy(), out["cpu"][0].numpy(), **TOL)
+    for k in ("depth", "n_leapfrog", "diverging"):
+        assert torch.equal(out["cuda"][1][k].cpu(), out["cpu"][1][k]), k
 
 
 @pytest.mark.parametrize("n", [1, 1000, 131072, 3 * 8192 + 17])

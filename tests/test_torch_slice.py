@@ -30,12 +30,15 @@ import torch_parity_models as models
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "fugue_tpu")
 FLAT_API = ("sample", "observe", "factor", "guard", "Normal", "LogNormal", "stage",
-            "HMCConfig", "HMCResult", "hmc_chain", "hmc_transition",
-            "print_diagnostics", "SMCConfig", "SMCResult", "adaptive_smc",
-            "importance_reweight")
-ENTRY_POINTS = (ftt.stage, ftt.StagedModel, ftt.hmc_chain, ftt.adaptive_smc,
-                ftt.importance_reweight, interop.tensor_from_numpy,
-                interop.hmc_state_from_numpy, interop.smc_state_from_numpy)
+            "HMCConfig", "HMCResult", "HmcSession", "hmc_chain", "hmc_transition",
+            "NUTSConfig", "NUTSResult", "NutsSession", "nuts_chain", "nuts_transition",
+            "print_diagnostics", "summarize_samples", "ParameterSummary",
+            "ess", "ess_multichain", "geweke", "r_hat", "rank_normalized_split_r_hat",
+            "split_r_hat", "SMCConfig", "SMCResult", "adaptive_smc", "importance_reweight")
+ENTRY_POINTS = (ftt.stage, ftt.StagedModel, ftt.hmc_chain, ftt.HmcSession, ftt.nuts_chain,
+                ftt.NutsSession, ftt.adaptive_smc, ftt.importance_reweight,
+                interop.tensor_from_numpy, interop.hmc_state_from_numpy,
+                interop.smc_state_from_numpy)
 
 
 @pytest.fixture(autouse=True)
