@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases build,kernel
     python3 chip_smoke.py --phases build,smc_kernels,smc
     python3 chip_smoke.py --phases build,nuts_eight_schools,nuts_plate
+    python3 chip_smoke.py --phases build,smc_coin,smc_mixture,smc_discrete
 
 Phases (each prints JSON lines; any failure raises and exits non-zero):
 
@@ -55,6 +56,21 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
 8. nuts_plate    ftt.nuts_chain on the 2^20-row plate (64 chains, uniform
                  init, 200 + 200, diagonal mass); the HMC plate's gates and
                  one kernel call per batched model run.
+9. smc_coin      ftt.adaptive_smc, float32, 131,072 particles, on the
+                 Beta-Bernoulli coin flip (BASELINE config 1), with 3 MH
+                 moves and with one 16-leapfrog HMC move (gradients through
+                 Beta and the Sigmoid Jacobian); gates on log Z against the
+                 exact log B(20, 11) - log B(2, 2) and mean p against 20/31.
+10. smc_mixture  the same on the Gaussian mixture of examples/mixture_models.py
+                 (BASELINE config 4: a guard, a Beta weight, a factor), 5 MH
+                 moves; gates on mu0, mu1, w and log Z against the JAX
+                 package's constants (scripts/smc_mixture_reference.py).
+11. smc_discrete the same on the mixed model of examples/discrete_models.py
+                 (a Bernoulli site moved by MH's flip proposal), 5 MH moves;
+                 gates on P(heads) and log Z against the closed form.
+                 Each SMC run of phases 6 and 9-11 checks both kernels'
+                 launch counts (4 * stages + 3 logsumexp, stages - 1
+                 resample), and the kernels line sums them over all five.
 
 Then it prints the card's name and power limit, one JSON line describing
 the kernels, and as the last line
@@ -79,7 +95,7 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernel", "eight_schools", "gaussian_plate", "smc_kernels", "smc",
-          "nuts_eight_schools", "nuts_plate")
+          "nuts_eight_schools", "nuts_plate", "smc_coin", "smc_mixture", "smc_discrete")
 SOURCES = ("normal_loglik_sum", "logsumexp", "systematic_resample")
 REPLACES = {
     # _nll_fwd_kernel and _nll_bwd_kernel, one value-and-grad kernel here
@@ -106,6 +122,19 @@ SMC_MU_RUNS = 48
 SMC_MU = {
     "mh": {"MU_MEAN": 0.57400469713508, "MU_RUN_SD": 0.026926052783615886},
     "hmc": {"MU_MEAN": 0.5713615302539027, "MU_RUN_SD": 0.009740783104405557},
+}
+
+# The mixture example (examples/mixture_models.py) under the JAX package's
+# adaptive_smc at 131,072 particles with 5 MH moves, on the CPU in float64,
+# seeds PRNGKey(0..31) (scripts/smc_mixture_reference.py --runs 32): for the
+# posterior means of mu0, mu1 and w and the log-evidence, the mean over runs
+# and the run-to-run standard deviation (one run's Monte-Carlo error).
+SMC_MIXTURE_RUNS = 32
+SMC_MIXTURE = {
+    "mu0": {"MEAN": -2.029626420331642, "RUN_SD": 0.0005162852972850393},
+    "mu1": {"MEAN": 2.0873063883955867, "RUN_SD": 0.0003461514304083394},
+    "w": {"MEAN": 0.403848374278331, "RUN_SD": 0.00021113446700997957},
+    "log_evidence": {"MEAN": -145.91377433878702, "RUN_SD": 0.017770533246677385},
 }
 
 # Posterior mean of mu in eight-schools (bench.eight_schools_model), from the
@@ -604,6 +633,90 @@ def conjugate_log_evidence() -> float:
     return -0.5 * (n * math.log(2 * math.pi) + math.log(1.0 + n) + quad)
 
 
+def coin_model(device):
+    """The Beta-Bernoulli coin flip (BASELINE config 1, ``coin_model`` of
+    tests/test_smc.py): p ~ Beta(2, 2), 18 heads of 27 observed."""
+    import fugue_tpu_torch as ftt
+
+    obs = torch.tensor([True] * 18 + [False] * 9, device=device)
+
+    def coin():
+        p = ftt.sample("p", ftt.Beta(2.0, 2.0))
+        ftt.observe("obs", ftt.Bernoulli(p), obs)
+        return p
+
+    return coin
+
+
+def coin_exact():
+    """(log-evidence, posterior mean of p) of ``coin_model``: the posterior
+    is Beta(20, 11), so log Z = log B(20, 11) - log B(2, 2)."""
+    def log_b(a, b):
+        return math.lgamma(a) + math.lgamma(b) - math.lgamma(a + b)
+
+    return log_b(20.0, 11.0) - log_b(2.0, 2.0), 20.0 / 31.0
+
+
+def mixture_data():
+    """The 100 points of examples/mixture_models.py."""
+    rng = np.random.default_rng(0)
+    return np.concatenate([rng.normal(-2.0, 0.5, 40), rng.normal(2.0, 0.5, 60)])
+
+
+def mixture_model(device, dtype=torch.float32):
+    """The two-component Gaussian mixture of examples/mixture_models.py
+    (BASELINE config 4): ordered means, a Beta weight, memberships summed
+    out in one factor."""
+    import fugue_tpu_torch as ftt
+
+    data = torch.as_tensor(mixture_data(), dtype=dtype, device=device)
+
+    def gmm():
+        mu0 = ftt.sample("mu0", ftt.Normal(0.0, 5.0))
+        mu1 = ftt.sample("mu1", ftt.Normal(0.0, 5.0))
+        ftt.guard(mu0 < mu1)  # ordering breaks label switching
+        w = ftt.sample("w", ftt.Beta(2.0, 2.0))
+        lp0 = torch.log(w) + ftt.Normal(mu0, 0.5).log_prob(data)
+        lp1 = torch.log1p(-w) + ftt.Normal(mu1, 0.5).log_prob(data)
+        ftt.factor(torch.sum(torch.logaddexp(lp0, lp1)))
+        return mu0, mu1
+
+    return gmm
+
+
+def mixed_discrete_model(device, dtype=torch.float32):
+    """The mixed model of examples/discrete_models.py: heads ~ Bernoulli(0.5),
+    mu ~ Normal(+-1, 1), y = (1.1, 0.9) ~ Normal(mu, 0.5)."""
+    import fugue_tpu_torch as ftt
+
+    y = torch.tensor([1.1, 0.9], dtype=dtype, device=device)
+
+    def mixed():
+        heads = ftt.sample("heads", ftt.Bernoulli(0.5))
+        mu = ftt.sample("mu", ftt.Normal(torch.where(heads, 1.0, -1.0).to(dtype), 1.0))
+        ftt.observe("y", ftt.Normal(mu, 0.5), y)
+        return mu
+
+    return mixed
+
+
+def mixed_discrete_exact():
+    """(log-evidence, P(heads | y)) of ``mixed_discrete_model`` in closed
+    form: given heads, y ~ N(+-1 * 1, 0.25 I + 1 1^T)."""
+    y = np.array([1.1, 0.9])
+    cov = 0.25 * np.eye(2) + np.ones((2, 2))
+    prec, (_, logdet) = np.linalg.inv(cov), np.linalg.slogdet(cov)
+
+    def log_lik(m):
+        d = y - m
+        return -0.5 * (d @ prec @ d + logdet + 2 * math.log(2 * math.pi))
+
+    a, b = float(log_lik(1.0)), float(log_lik(-1.0))
+    top = max(a, b)
+    log_z = math.log(0.5) + top + math.log(math.exp(a - top) + math.exp(b - top))
+    return log_z, 1.0 / (1.0 + math.exp(b - a))
+
+
 def _lse_inputs(n, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     finite = 10.0 * torch.randn(n + 1, generator=g, device="cuda")
@@ -823,7 +936,10 @@ def phase_smc_kernels():
     return rows
 
 
-def _smc_run(name, staged, n, seed, config):
+def _smc_run(name, staged, n, seed, config, site="mu", phase="smc"):
+    """One ftt.adaptive_smc run, timed, with the kernels' launch counts set
+    to 0 just before and read just after; checks convergence, the weights
+    and both kernels' launch counts, and reports ``site``'s posterior."""
     import fugue_tpu_torch as ftt
     from fugue_tpu_torch.ops import kernels as K
 
@@ -835,16 +951,17 @@ def _smc_run(name, staged, n, seed, config):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
-    mu = res.particles["mu"]
-    check(mu.shape == (n,) and bool(torch.isfinite(mu).all()), f"{name}: mu {tuple(mu.shape)} or non-finite")
+    x = res.particles[site]
+    check(x.shape == (n,) and bool(torch.isfinite(x).all()),
+          f"{name}: {site} {tuple(x.shape)} or non-finite")
     check(abs(res.weights.double().sum().item() - 1.0) < 1e-4, f"{name}: weights do not sum to 1")
-    mean = res.posterior_mean("mu").item()
-    sd = math.sqrt(res.posterior_var("mu").item())
-    row = {"phase": "smc", "run": name, "particles": n, "dtype": str(mu.dtype),
+    mean = res.posterior_mean(site).item()
+    sd = math.sqrt(res.posterior_var(site).item())
+    row = {"phase": phase, "run": name, "particles": n, "dtype": str(x.dtype),
            "rejuvenation": config.rejuvenation, "rejuvenation_steps": config.rejuvenation_steps,
            "wall_s": wall, "particle_stages_per_s": n * res.n_stages / wall,
            "stages": res.n_stages, "beta": res.beta, "log_evidence": res.log_evidence,
-           "ess": res.ess, "mu_mean": mean, "mu_sd": sd, "launches": launches}
+           "ess": res.ess, f"{site}_mean": mean, f"{site}_sd": sd, "launches": launches}
     check(res.converged and res.beta == 1.0, f"{name}: not converged, beta {res.beta}")
     # No terminal resample: every stage but the last (beta = 1) resampled.
     # logsumexp per stage: 2 in _next_beta's ESS, 1 to normalise, 1 for the
@@ -853,7 +970,12 @@ def _smc_run(name, staged, n, seed, config):
     s = res.n_stages
     check(launches["resample"] == s - 1, f"{name}: {launches['resample']} resample launches, {s} stages")
     check(launches["lse"] == 4 * s + 3, f"{name}: {launches['lse']} logsumexp launches, want {4 * s + 3}")
-    return row
+    return row, res
+
+
+def _add_launches(total, launches):
+    for k in total:
+        total[k] += launches[k]
 
 
 def phase_smc():
@@ -865,24 +987,88 @@ def phase_smc():
             ("hierarchical_hmc", "hmc", 13,
              ftt.SMCConfig(rejuvenation="hmc", rejuvenation_steps=1, hmc_leapfrog=16)))
     for name, mode, seed, cfg in runs:
-        row = _smc_run(name, staged, N_PARTICLES, seed, cfg)
+        row, _ = _smc_run(name, staged, N_PARTICLES, seed, cfg)
         ref = SMC_MU[mode]
         mcse = math.hypot(ref["MU_RUN_SD"], ref["MU_RUN_SD"] / math.sqrt(SMC_MU_RUNS))
         row.update(mu_ref=ref["MU_MEAN"], mu_mcse=mcse, mu_z=(row["mu_mean"] - ref["MU_MEAN"]) / mcse)
         emit(row)
         check(abs(row["mu_z"]) < 5.0, f"{name}: mu mean {row['mu_mean']} is {row['mu_z']:.2f} MC-SE "
               f"from {ref['MU_MEAN']}")
-        for k in launches:
-            launches[k] += row["launches"][k]
+        _add_launches(launches, row["launches"])
     staged_c = ftt.stage(conjugate_evidence_model("cuda"), device="cuda")
-    row = _smc_run("conjugate", staged_c, 8192, 33, ftt.SMCConfig(rejuvenation_steps=3))
+    row, _ = _smc_run("conjugate", staged_c, 8192, 33, ftt.SMCConfig(rejuvenation_steps=3))
     exact = conjugate_log_evidence()
     row.update(log_evidence_exact=exact, log_evidence_err=row["log_evidence"] - exact)
     emit(row)
     check(abs(row["log_evidence_err"]) < 0.1, f"conjugate log Z {row['log_evidence']} vs {exact}")
-    for k in launches:
-        launches[k] += row["launches"][k]
+    _add_launches(launches, row["launches"])
     return launches
+
+
+def phase_smc_coin():
+    """The coin flip with MH moves, and with HMC moves, which take gradients
+    through Beta and the Sigmoid Jacobian: log Z within 0.1 of the exact
+    value, mean p within 0.005 of 20/31."""
+    import fugue_tpu_torch as ftt
+
+    launches = {"lse": 0, "resample": 0}
+    staged = ftt.stage(coin_model("cuda"), device="cuda")
+    log_z, p_mean = coin_exact()
+    runs = (("coin_mh", 21, ftt.SMCConfig(rejuvenation_steps=3)),
+            ("coin_hmc", 22, ftt.SMCConfig(rejuvenation="hmc", rejuvenation_steps=1,
+                                           hmc_leapfrog=16)))
+    for name, seed, cfg in runs:
+        row, _ = _smc_run(name, staged, N_PARTICLES, seed, cfg, site="p", phase="smc_coin")
+        row.update(log_evidence_exact=log_z, log_evidence_err=row["log_evidence"] - log_z,
+                   p_exact=p_mean, p_err=row["p_mean"] - p_mean)
+        emit(row)
+        check(abs(row["log_evidence_err"]) < 0.1, f"{name}: log Z {row['log_evidence']} vs {log_z}")
+        check(abs(row["p_err"]) < 0.005, f"{name}: mean p {row['p_mean']} vs {p_mean}")
+        _add_launches(launches, row["launches"])
+    return launches
+
+
+def phase_smc_mixture():
+    """The mixture example with 5 MH moves: the posterior means of mu0, mu1
+    and w and log Z each within 5 MC-SE of the JAX package's constants."""
+    import fugue_tpu_torch as ftt
+
+    staged = ftt.stage(mixture_model("cuda"), device="cuda")
+    row, res = _smc_run("mixture_mh", staged, N_PARTICLES, 31, ftt.SMCConfig(rejuvenation_steps=5),
+                        site="mu0", phase="smc_mixture")
+    got = {"mu0": row["mu0_mean"], "mu1": res.posterior_mean("mu1").item(),
+           "w": res.posterior_mean("w").item(), "log_evidence": row["log_evidence"]}
+    z = {}
+    for k, v in got.items():
+        ref = SMC_MIXTURE[k]
+        mcse = math.hypot(ref["RUN_SD"], ref["RUN_SD"] / math.sqrt(SMC_MIXTURE_RUNS))
+        z[k] = (v - ref["MEAN"]) / mcse
+    row.update(means=got, refs={k: v["MEAN"] for k, v in SMC_MIXTURE.items()}, z=z)
+    emit(row)
+    for k, v in z.items():
+        check(abs(v) < 5.0, f"mixture {k} {got[k]} is {v:.2f} MC-SE from {SMC_MIXTURE[k]['MEAN']}")
+    return row["launches"]
+
+
+def phase_smc_discrete():
+    """The mixed discrete model with 5 MH moves, whose flip proposal moves
+    heads: P(heads) within 0.01 and log Z within 0.1 of the closed form."""
+    import fugue_tpu_torch as ftt
+
+    staged = ftt.stage(mixed_discrete_model("cuda"), device="cuda")
+    row, res = _smc_run("discrete_mh", staged, N_PARTICLES, 41, ftt.SMCConfig(rejuvenation_steps=5),
+                        phase="smc_discrete")
+    log_z, p_heads = mixed_discrete_exact()
+    heads = res.particles["heads"]
+    check(heads.dtype == torch.bool and heads.shape == (N_PARTICLES,), f"heads {heads.dtype}")
+    got = res.posterior_mean("heads").item()
+    row.update(p_heads=got, p_heads_exact=p_heads, p_heads_err=got - p_heads,
+               log_evidence_exact=log_z, log_evidence_err=row["log_evidence"] - log_z)
+    emit(row)
+    check(row["stages"] >= 2, "smc_discrete: one stage, so no MH move ran")
+    check(abs(row["p_heads_err"]) < 0.01, f"P(heads) {got} vs {p_heads}")
+    check(abs(row["log_evidence_err"]) < 0.1, f"discrete log Z {row['log_evidence']} vs {log_z}")
+    return row["launches"]
 
 
 def _nuts_tree_stats(res, n_chains, n_transitions, wall):
@@ -975,7 +1161,8 @@ def main(argv=None) -> int:
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     import fugue_tpu_torch  # noqa: F401  (fails outside a checkout)
 
-    kernel_rows = launches = smc_rows = smc_launches = nuts_launches = None
+    kernel_rows = launches = smc_rows = nuts_launches = None
+    smc_launches = {"lse": 0, "resample": 0}
     if "build" in phases:
         phase_build()
     if "kernel" in phases:
@@ -987,11 +1174,15 @@ def main(argv=None) -> int:
     if "smc_kernels" in phases:
         smc_rows = phase_smc_kernels()
     if "smc" in phases:
-        smc_launches = phase_smc()
+        _add_launches(smc_launches, phase_smc())
     if "nuts_eight_schools" in phases:
         phase_nuts_eight_schools()
     if "nuts_plate" in phases:
         nuts_launches = phase_nuts_plate()
+    for name, phase in (("smc_coin", phase_smc_coin), ("smc_mixture", phase_smc_mixture),
+                        ("smc_discrete", phase_smc_discrete)):
+        if name in phases:
+            _add_launches(smc_launches, phase())
 
     print(card_line(), flush=True)
     if set(phases) != set(PHASES):
@@ -1009,6 +1200,8 @@ def main(argv=None) -> int:
         # the plate kernel's calls on both of its paths: HMC and NUTS
         entry("normal_loglik_sum_value_and_grad", "nll", "normal_loglik_sum",
               kernel_rows[MAIN_SHAPE], launches["nll"] + nuts_launches["nll"]),
+        # the SMC kernels' calls on their five paths: the smc phase's three
+        # runs and the coin (two runs), mixture and discrete phases
         entry("logsumexp", "lse", "logsumexp", smc_rows[("lse", N_PARTICLES)],
               smc_launches["lse"]),
         entry("systematic_resample", "resample", "systematic_resample",

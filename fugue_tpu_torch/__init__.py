@@ -1,7 +1,10 @@
 """fugue_tpu_torch: the PyTorch/CUDA port of fugue_tpu.
 
-Three engines run end to end on one device. Vectorized HMC and NUTS: the
-model language, the trace/handler runtime, staging into a potential on
+Three engines run end to end on one device over the model language of the
+JAX package: its 24 distributions, with discrete sites and the bounded,
+simplex and dependent-bound transforms, and the ``masked``, ``cond``,
+``plate`` and ``Model`` combinators. Vectorized HMC and NUTS: the
+trace/handler runtime, staging into a potential on
 unconstrained R^d, batched forces through ``torch.func``, the HMC drive and
 the lock-step NUTS tree build with dual averaging and diagonal or dense
 mass adaptation, ``resume``, the incremental ``HmcSession`` and
@@ -29,8 +32,59 @@ from .errors import (
     ValidationError,
 )
 from .core.address import Address, addr, scoped_addr
-from .core.distributions import Distribution, LogNormal, Normal
-from .core.model import factor, guard, observe, sample
+from .core.numerics import (
+    log1p_exp,
+    log_gamma,
+    log_sum_exp,
+    normalize_log_probs,
+    safe_log,
+    weighted_log_sum_exp,
+)
+from .core.distributions import (
+    ALL_DISTRIBUTIONS,
+    Bernoulli,
+    BernoulliLogits,
+    Beta,
+    Binomial,
+    Categorical,
+    Cauchy,
+    ChiSquared,
+    Dirichlet,
+    MultivariateNormal,
+    DiscreteUniform,
+    Distribution,
+    EXTRA_DISTRIBUTIONS,
+    Exponential,
+    Gamma,
+    Geometric,
+    HalfCauchy,
+    HalfNormal,
+    InverseGamma,
+    NegativeBinomial,
+    Laplace,
+    LogNormal,
+    Normal,
+    Poisson,
+    StudentT,
+    Support,
+    Uniform,
+    Weibull,
+)
+from .core.model import (
+    Model,
+    cond,
+    factor,
+    guard,
+    masked,
+    observe,
+    plate,
+    pure,
+    sample,
+    sequence_vec,
+    traverse_vec,
+)
+from .core.rng import address_seed
+from .core import transforms
 from .inference.diagnostics import ParameterSummary, print_diagnostics, summarize_samples
 from .inference.hmc import HMCConfig, HMCResult, HmcSession, hmc_chain, hmc_transition
 from .inference.mcmc_utils import (

@@ -165,6 +165,17 @@ def _is_concrete(x: Any) -> bool:
     return False
 
 
+def _is_python_static(x: Any) -> bool:
+    """True only for Python and numpy values, never tensors: a value that may
+    stand as a build-time constant (a static support bound). A tensor may be
+    derived from another site's draw during staging discovery."""
+    if isinstance(x, (bool, int, float, np.ndarray, np.generic)):
+        return True
+    if isinstance(x, (list, tuple)):
+        return np.asarray(x).dtype != object
+    return False
+
+
 def _as_numpy(x: Any) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
@@ -183,4 +194,24 @@ def check_positive(name: str, value: Any, code: ErrorCode) -> None:
     if not np.all(np.isfinite(v)) or not np.all(v > 0):
         raise ValidationError(
             code, f"{name} must be positive and finite", {name: value}
+        )
+
+
+def check_probability(name: str, value: Any) -> None:
+    if not _is_concrete(value):
+        return
+    v = _as_numpy(value)
+    if not np.all(np.isfinite(v)) or np.any(v < 0) or np.any(v > 1):
+        raise ValidationError(
+            ErrorCode.INVALID_PROBABILITY, f"{name} must lie in [0, 1]", {name: value}
+        )
+
+
+def check_count(name: str, value: Any) -> None:
+    if not _is_concrete(value):
+        return
+    v = _as_numpy(value)
+    if np.any(v < 0) or not np.all(np.equal(np.mod(v, 1), 0)):
+        raise ValidationError(
+            ErrorCode.INVALID_COUNT, f"{name} must be a non-negative integer", {name: value}
         )

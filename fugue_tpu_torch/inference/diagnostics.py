@@ -15,7 +15,7 @@ from typing import Any, Dict, List, Sequence
 import numpy as np
 import torch
 
-from .mcmc_utils import ess_multichain, split_r_hat
+from .mcmc_utils import ess_multichain, quantile, split_r_hat
 
 RHAT_EXCELLENT = 1.01
 RHAT_GOOD = 1.1
@@ -67,10 +67,9 @@ def summarize_samples(
         comp = arr.reshape(m, n, -1).movedim(-1, 0)  # (k, m, n)
         rh = split_r_hat(comp)
         es = ess_multichain(comp)
-        q = torch.tensor(quantiles, dtype=torch.float64)
         for j in range(comp.shape[0]):
             xs = comp[j].reshape(-1)
-            qv = torch.quantile(xs, q)
+            qv = quantile(xs, list(quantiles))
             out.append(
                 ParameterSummary(
                     name=name if comp.shape[0] == 1 else f"{name}[{j}]",

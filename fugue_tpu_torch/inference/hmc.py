@@ -194,14 +194,16 @@ def mass_kinetic(inv_mass, p):
 def momentum_from_normal(inv_mass, z):
     """Standard normal draws ``z`` (..., d) → momenta p ~ N(0, M):
     z / sqrt(inv_mass) for a diagonal mass; for a dense Σ = L Lᵀ, p = L⁻ᵀ z,
-    the solution of p L = z row by row. ``cholesky_ex`` does not read its
-    error code back to the host."""
+    the solution of p L = z row by row. A Σ that is not positive definite
+    gives NaN momenta, as the JAX package's Cholesky does, so the
+    transition is divergent and rejected; ``cholesky_ex``'s error code
+    selects them on the device, with no host read."""
     if inv_mass.dim() == 1:
         return z / torch.sqrt(inv_mass)
-    chol = torch.linalg.cholesky_ex(inv_mass).L
+    chol, info = torch.linalg.cholesky_ex(inv_mass)
     d = inv_mass.shape[0]
     p = torch.linalg.solve_triangular(chol, z.reshape(-1, d), upper=False, left=False)
-    return p.reshape(z.shape)
+    return torch.where(info == 0, p, torch.nan).reshape(z.shape)
 
 
 def mass_draw_momentum(generator: torch.Generator, inv_mass, shape):
@@ -450,9 +452,12 @@ def make_hmc_drive(
     n_chains: int,
     n_samples: int,
     n_warmup: int,
+    *,
+    discrete: Optional[Dict[str, Any]] = None,
 ):
     """Build ``drive(q0, generator, eps_over=None, inv_mass_over=None) →
-    (q_f, qs, ljs, aps, divs, eps, inv_mass)``.
+    (q_f, qs, ljs, aps, divs, eps, inv_mass)``; discrete sites are held at
+    ``discrete`` (default: their discovery values).
 
     Warmup: two windows of dual averaging on the cross-chain mean
     acceptance; at the midpoint the mass becomes the regularized Welford
@@ -464,9 +469,11 @@ def make_hmc_drive(
     ``inv_mass_over`` replace the initial step size and mass (resume).
     """
     d = staged.dim
-    potential = staged.potential
     L = config.n_leapfrog
     dense = config.mass == "dense"
+
+    def potential(z):
+        return staged.potential(z, discrete)
 
     def drive(q0, generator: torch.Generator, eps_over=None, inv_mass_over=None):
         dt, dev = q0.dtype, q0.device
@@ -579,6 +586,7 @@ def hmc_chain(
     model_args: tuple = (),
     staged: Optional[StagedModel] = None,
     device="cuda",
+    discrete: Optional[Dict[str, Any]] = None,
     resume: Optional[Any] = None,
     init_position: Optional[Any] = None,
     init_jitter: float = 0.05,
@@ -599,6 +607,9 @@ def hmc_chain(
     point broadcast to all chains with per-chain Gaussian jitter of scale
     ``init_jitter``, or an explicit ``(n_chains, d)`` batch used as-is.
     Warmup still runs.
+
+    Discrete sites are held fixed at their discovery values or at
+    ``discrete``; compose with MH sweeps for mixed models.
     """
     if staged is None:
         staged = stage(model_fn, *model_args, device=device)
@@ -612,7 +623,7 @@ def hmc_chain(
         config = replace(config, step_size=None, adapt_step_size=False, adapt_mass=False)
         n_warmup = 0
         overrides = dict(eps_over=resume.step_size, inv_mass_over=resume.inv_mass)
-    drive = make_hmc_drive(staged, config, n_chains, n_samples, n_warmup)
+    drive = make_hmc_drive(staged, config, n_chains, n_samples, n_warmup, discrete=discrete)
     q_f, qs, ljs, aps, divs, eps_final, inv_mass_f = drive(q0, generator, **overrides)
 
     positions = qs.movedim(0, 1)  # (n_chains, n_samples, d)
@@ -709,7 +720,7 @@ class HmcSession:
     def current_trace(self):
         """Constrained values + density parts at the current position."""
         cont, _ = self.staged.constrain(self._q)
-        return self.staged.replay_trace(cont)
+        return self.staged.replay_trace(self.staged.merge_discrete(cont))
 
     def step(self) -> HmcStepInfo:
         """One transition; the returned fields are 0-dim tensors."""

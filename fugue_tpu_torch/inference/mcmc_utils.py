@@ -13,6 +13,7 @@ import math
 from dataclasses import dataclass
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from .. import settings
@@ -109,6 +110,25 @@ def split_r_hat(chains):
     return r_hat(split)
 
 
+def quantile(x, q):
+    """numpy's default (linear) quantiles of ``x`` along its last dim: a
+    float ``q`` gives shape x.shape[:-1], a sequence (..., len(q)). Taken
+    from ``torch.sort``, which takes any size (``torch.quantile`` refuses
+    inputs above 2^24 elements)."""
+    xs = torch.sort(x, dim=-1).values
+    n = xs.shape[-1]
+    qs = np.atleast_1d(np.asarray(q, dtype=np.float64))
+    h = n * qs + (1.0 - qs) - 1.0  # numpy's virtual index for "linear"
+    lo = np.clip(np.floor(h), 0, n - 1).astype(np.int64)
+    hi = np.clip(lo + 1, 0, n - 1)
+    t = torch.as_tensor(h - np.floor(h), dtype=xs.dtype, device=xs.device)
+    a = xs[..., torch.as_tensor(lo, device=xs.device)]
+    b = xs[..., torch.as_tensor(hi, device=xs.device)]
+    diff = b - a
+    out = torch.where(t >= 0.5, b - diff * (1.0 - t), a + diff * t)
+    return out[..., 0] if np.ndim(q) == 0 else out
+
+
 def _rank_normalize(chains):
     """Pooled draws → normal scores: r_i = rank over ALL chains' draws,
     z_i = Phi^-1((r_i - 3/8) / (S + 1/4)) (Blom offsets; Vehtari et al.
@@ -129,7 +149,7 @@ def rank_normalized_split_r_hat(chains):
     |x - median|. ``chains``: (..., m, n) → (...,)."""
     x = _float(chains)
     bulk = split_r_hat(_rank_normalize(x))
-    med = torch.quantile(x.reshape(*x.shape[:-2], -1), 0.5, dim=-1)[..., None, None]
+    med = quantile(x.reshape(*x.shape[:-2], -1), 0.5)[..., None, None]
     tail = split_r_hat(_rank_normalize(torch.abs(x - med)))
     return torch.maximum(bulk, tail)
 

@@ -1,25 +1,29 @@
 """Single-site Metropolis-Hastings, batched over particles.
 
 The port of the part of ``fugue_tpu/inference/mh.py`` that SMC's
-rejuvenation calls: ``MHState``, ``_reflect_into``, ``_packed_meta`` and
-``mh_step``, for continuous sites.
+rejuvenation calls: ``MHState``, ``_reflect_into``, ``_packed_meta``, the
+discrete proposals (``_propose_flip``, ``_propose_discrete_walk``,
+``_propose_categorical``, ``make_site_proposal``) and ``mh_step``.
 
 One step moves every particle (or chain) of a batch at once:
 
-1. draw a target site index per particle;
+1. draw a target site index per particle, over all sites;
 2. propose for every coordinate of the flat constrained layout
    elementwise (Gaussian walk, log-space walk for positive supports,
-   reflection walk inside bounded intervals) and keep only the drawn site's
-   coordinates;
+   reflection walk inside bounded intervals), and for every discrete site
+   by its support (a flip for booleans, a reflected integer walk for
+   counts and ranges, a uniform redraw for categories); keep only the drawn
+   site's proposal;
 3. score all proposals in ONE batched replay of the target density, and
-   accept or reject with the log-space walk's exact Hastings term;
+   accept or reject with the log-space walk's exact Hastings term (the
+   discrete proposals are symmetric);
 4. update the per-site diminishing-adaptation scales (unless frozen).
 
-``mh_step`` draws the noise (site index, ε, accept log-uniform) from a
-``torch.Generator``; ``mh_step_from_noise`` holds the arithmetic and takes
-that noise as arguments, so the tests can hand it the JAX step's own draws.
-The discrete proposals and ``adaptive_mcmc_chain`` wait for a later
-slice.
+``mh_step`` draws the noise (site index, ε, accept log-uniform, and per
+discrete site its walk or category draws) from a ``torch.Generator``;
+``mh_step_from_noise`` holds the arithmetic and takes that noise as
+arguments, so the tests can hand it the JAX step's own draws.
+``adaptive_mcmc_chain`` waits for a later slice.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from ..core.distributions import Support
 from ..runtime.staging import StagedModel
 from .mcmc_utils import AdaptationState, adapt_update
 
@@ -53,6 +58,78 @@ def _reflect_into(y, lo, hi):
     width = hi - lo
     t = torch.remainder(y - lo, 2 * width)
     return lo + torch.minimum(t, 2 * width - t)
+
+
+def _propose_flip(x):
+    """Deterministic flip (symmetric)."""
+    return torch.logical_not(x)
+
+
+def _propose_discrete_walk(x, mag, sign, lo, hi):
+    """Integer random walk by ``sign * mag`` (mag >= 1, sign ±1), reflected
+    about lo − 1/2 (and hi + 1/2 when bounded): symmetric by reflection."""
+    y = x + (sign * mag).to(x.dtype)
+    if lo is not None:
+        y = torch.where(y < lo, 2 * lo - 1 - y, y)
+    if hi is not None:
+        y = torch.where(y > hi, 2 * hi + 1 - y, y)
+    if lo is not None:
+        y = torch.clamp(y, min=lo)  # extreme overshoot guard
+    if hi is not None:
+        y = torch.clamp(y, max=hi)
+    return y
+
+
+def _propose_categorical(x, category):
+    """Uniform redraw over the categories (symmetric): ``category`` is the
+    drawn index."""
+    return category.to(x.dtype)
+
+
+def _walk_bounds(support: Support):
+    lo = support.low if support.low is not None else (0 if support.kind == "count" else None)
+    return lo, support.high
+
+
+def make_site_proposal(support: Support) -> Callable:
+    """The proposal of a discrete support, as ``(x, noise) → x'``: ``noise``
+    is None for a flip, ``(mag, sign)`` for a walk, the category for a
+    categorical. Continuous sites propose in the packed flat layout of
+    ``mh_step_from_noise`` instead."""
+    kind = support.kind
+    if kind == "boolean":
+        return lambda x, noise: _propose_flip(x)
+    if kind == "categorical":
+        return lambda x, noise: _propose_categorical(x, noise)
+    if kind in ("count", "int_range"):
+        lo, hi = _walk_bounds(support)
+        return lambda x, noise: _propose_discrete_walk(x, noise[0], noise[1], lo, hi)
+    raise ValueError(f"{kind!r} is a continuous support: it proposes in the packed layout")
+
+
+def draw_discrete_noise(staged: StagedModel, scales, generator: torch.Generator, b: int):
+    """The discrete sites' draws for one step of ``b`` members: per walk
+    site (mag, sign) with mag uniform on 1..max(round(scale), 1) and sign
+    ±1 with probability 1/2; per categorical site a uniform category; a
+    flip draws nothing."""
+    dev = generator.device
+    out: Dict[str, Any] = {}
+    for s in staged.discrete_sites:
+        shape = (b,) + s.shape
+        if s.support.kind == "boolean":
+            out[s.address] = None
+        elif s.support.kind == "categorical":
+            out[s.address] = torch.randint(0, s.support.size, shape, generator=generator,
+                                           device=dev)
+        else:
+            scale = scales[..., staged.site_index[s.address]]
+            width = torch.clamp(torch.round(scale), min=1.0)
+            width = width.reshape(width.shape + (1,) * (len(shape) - width.dim()))
+            u = torch.rand(shape, generator=generator, device=dev, dtype=scales.dtype)
+            mag = torch.minimum(1.0 + torch.floor(u * width), width).to(torch.int64)
+            sign = torch.where(torch.rand(shape, generator=generator, device=dev) < 0.5, 1, -1)
+            out[s.address] = (mag, sign)
+    return out
 
 
 def _packed_meta(staged: StagedModel):
@@ -113,10 +190,13 @@ def mh_step_from_noise(
     adapt: bool,
     target_accept: float = TARGET_ACCEPT,
     log_density_fn: Optional[Callable] = None,
+    discrete_noise: Optional[Dict[str, Any]] = None,
 ):
     """One single-site MH transition for a batch of B members, given its
     noise: ``site_idx`` (B,) sites to move, ``eps`` (B, constrained_dim)
-    standard normals, ``log_u`` (B,) accept log-uniforms.
+    standard normals, ``log_u`` (B,) accept log-uniforms, and
+    ``discrete_noise`` the discrete sites' draws (``draw_discrete_noise``;
+    needed only when the model has discrete sites).
 
     ``log_density_fn`` maps batched latents to the (B,) target (SMC's
     tempered π_β); the default is the full joint, one batched replay.
@@ -126,34 +206,42 @@ def mh_step_from_noise(
     scales = state.adapt.scale()
 
     proposed: Dict[str, Any] = dict(state.latents)
-    z = staged.flatten_constrained(state.latents)  # (B, D)
-    dt = z.dtype
-    site_of, is_pos, is_int, lo, hi, width = _meta_tensors(staged, dt)
-    s_coord = scales[..., site_of]  # per-coordinate scale: (D,) or (B, D)
-    cand = z + s_coord * width * eps  # Gaussian walk
-    z_safe = torch.where(is_pos, z, torch.ones_like(z))
-    cand_pos = z_safe * torch.exp(s_coord * eps)  # log-space walk
-    cand_ref = _reflect_into(cand, lo, hi)  # reflection walk inside intervals
-    cand = torch.where(is_pos, cand_pos, torch.where(is_int, cand_ref, cand))
-    sel = site_of == site_idx[:, None]
-    z_new = torch.where(sel, cand, z)
-    # exact Hastings term of the log-space walk: ln x' - ln x
-    corr = torch.where(
-        sel & is_pos,
-        torch.log(torch.where(is_pos, cand_pos, torch.ones_like(cand_pos))) - torch.log(z_safe),
-        torch.zeros_like(z),
-    )
-    hastings = torch.sum(corr, dim=-1)
-    proposed.update(staged.unflatten_constrained(z_new))
+    hastings = torch.zeros_like(state.log_joint)
+    if staged.constrained_dim > 0:
+        z = staged.flatten_constrained(state.latents)  # (B, D)
+        site_of, is_pos, is_int, lo, hi, width = _meta_tensors(staged, z.dtype)
+        s_coord = scales[..., site_of]  # per-coordinate scale: (D,) or (B, D)
+        cand = z + s_coord * width * eps  # Gaussian walk
+        z_safe = torch.where(is_pos, z, torch.ones_like(z))
+        cand_pos = z_safe * torch.exp(s_coord * eps)  # log-space walk
+        cand_ref = _reflect_into(cand, lo, hi)  # reflection walk inside intervals
+        cand = torch.where(is_pos, cand_pos, torch.where(is_int, cand_ref, cand))
+        sel = site_of == site_idx[:, None]
+        z_new = torch.where(sel, cand, z)
+        # exact Hastings term of the log-space walk: ln x' - ln x
+        corr = torch.where(
+            sel & is_pos,
+            torch.log(torch.where(is_pos, cand_pos, torch.ones_like(cand_pos))) - torch.log(z_safe),
+            torch.zeros_like(z),
+        )
+        hastings = torch.sum(corr, dim=-1)
+        proposed.update(staged.unflatten_constrained(z_new))
+
+    def members(mask, like):
+        return mask.reshape(-1, *([1] * (like.dim() - 1)))
+
+    for s in staged.discrete_sites:
+        cur = state.latents[s.address]
+        cand = make_site_proposal(s.support)(cur, discrete_noise[s.address])
+        sel = site_idx == staged.site_index[s.address]
+        proposed[s.address] = torch.where(members(sel, cur), cand, cur)
 
     new_lj = target(proposed)
     log_alpha = new_lj - state.log_joint + hastings
     accept = log_u < log_alpha
 
-    def keep(new, old):
-        return torch.where(accept.reshape(-1, *([1] * (new.dim() - 1))), new, old)
-
-    latents = {a: keep(proposed[a], state.latents[a]) for a in state.latents}
+    latents = {a: torch.where(members(accept, proposed[a]), proposed[a], state.latents[a])
+               for a in state.latents}
     log_joint = torch.where(accept, new_lj, state.log_joint)
     one_hot = torch.nn.functional.one_hot(site_idx, n_sites).to(scales.dtype)
     new_adapt = adapt_update(state.adapt, one_hot, accept, target=target_accept,
@@ -176,5 +264,6 @@ def mh_step(
     site_idx = torch.randint(0, len(staged.sites), (b,), generator=generator, device=dev)
     eps = torch.randn((b, staged.constrained_dim), generator=generator, device=dev, dtype=dt)
     log_u = torch.log1p(-torch.rand((b,), generator=generator, device=dev, dtype=dt))
+    disc = draw_discrete_noise(staged, state.adapt.scale(), generator, b)
     return mh_step_from_noise(staged, state, site_idx, eps, log_u, adapt, target_accept,
-                              log_density_fn)
+                              log_density_fn, disc)

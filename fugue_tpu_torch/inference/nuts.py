@@ -340,9 +340,12 @@ def make_nuts_drive(
     n_chains: int,
     n_samples: int,
     n_warmup: int,
+    *,
+    discrete: Optional[Dict[str, Any]] = None,
 ):
     """Build ``drive(q0, generator, eps_over=None, inv_mass_over=None) →
-    (q_f, qs, aps, divs, depths, eps, inv_mass, n_leaps, counts)``.
+    (q_f, qs, aps, divs, depths, eps, inv_mass, n_leaps, counts)``; discrete
+    sites are held at ``discrete`` (default: their discovery values).
 
     The same schedule as ``hmc.make_hmc_drive``: two warmup windows of dual
     averaging on the cross-chain mean of the trajectory-averaged acceptance
@@ -354,8 +357,10 @@ def make_nuts_drive(
     host ints ``leaves`` and ``host_syncs``.
     """
     d = staged.dim
-    potential = staged.potential
     dense = config.mass == "dense"
+
+    def potential(z):
+        return staged.potential(z, discrete)
 
     def drive(q0, generator: torch.Generator, eps_over=None, inv_mass_over=None):
         dt, dev = q0.dtype, q0.device
@@ -429,6 +434,7 @@ def nuts_chain(
     model_args: tuple = (),
     staged: Optional[StagedModel] = None,
     device="cuda",
+    discrete: Optional[Dict[str, Any]] = None,
     resume: Optional[Any] = None,
     init_position: Optional[Any] = None,
     init_jitter: float = 0.05,
@@ -447,6 +453,9 @@ def nuts_chain(
     ``init_position``: warm-start unconstrained position(s), a ``(d,)``
     point broadcast with per-chain jitter or an explicit ``(n_chains, d)``
     batch (see ``hmc_chain``).
+
+    Discrete sites are held fixed at their discovery values or at
+    ``discrete``.
     """
     if staged is None:
         staged = stage(model_fn, *model_args, device=device)
@@ -460,7 +469,7 @@ def nuts_chain(
         config = replace(config, step_size=None, adapt_step_size=False, adapt_mass=False)
         n_warmup = 0
         overrides = dict(eps_over=resume.step_size, inv_mass_over=resume.inv_mass)
-    drive = make_nuts_drive(staged, config, n_chains, n_samples, n_warmup)
+    drive = make_nuts_drive(staged, config, n_chains, n_samples, n_warmup, discrete=discrete)
     q_f, qs, aps, divs, depths, eps_final, inv_mass_f, n_leaps, counts = drive(
         q0, generator, **overrides)
     positions = qs.movedim(0, 1)

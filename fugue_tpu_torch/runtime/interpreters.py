@@ -100,32 +100,38 @@ class ValuesHandler(_RecordingHandler):
 
 
 class ConstrainHandler(_RecordingHandler):
-    """Replay with continuous latents given in UNCONSTRAINED space.
+    """Replay with continuous latents given in UNCONSTRAINED space and the
+    other (discrete) latents as values.
 
-    Each site's z maps through the transform built from the runtime
-    distribution; the summed log|J| accumulates on ``self.logdet`` and the
-    trace records constrained values."""
+    Each continuous site's z maps through the transform built from the
+    runtime distribution, so bounds that depend on earlier sites use their
+    current values; the summed log|J| accumulates on ``self.logdet`` and
+    the trace records constrained values."""
 
-    def __init__(self, z_values: Dict[str, Any]):
+    def __init__(self, z_values: Dict[str, Any], other_values: Dict[str, Any]):
         super().__init__()
         self.z_values = z_values
+        self.other_values = other_values
         self.logdet = 0.0
 
     def on_sample(self, addr, dist, sample_shape):
         self._check_duplicate(addr)
-        if addr not in self.z_values:
+        if addr in self.z_values:
+            t = dist.unconstraining_transform()
+            z = self.z_values[addr]
+            value = t.forward(z)
+            self.logdet = self.logdet + torch.sum(t.log_det_jacobian(z))
+        elif addr in self.other_values:
+            value = self.other_values[addr]
+        else:
             raise trace_address_not_found(addr)
-        t = dist.unconstraining_transform()
-        z = self.z_values[addr]
-        value = t.forward(z)
-        self.logdet = self.logdet + torch.sum(t.log_det_jacobian(z))
         return self._score_site(addr, dist, value, False)
 
 
 class UnconstrainHandler(ValuesHandler):
     """Replay with CONSTRAINED latents, collecting each continuous site's
     inverse image under the runtime transform (the exact inverse of
-    ``ConstrainHandler``)."""
+    ``ConstrainHandler``), its value cast to the real dtype first."""
 
     def __init__(self, values: Dict[str, Any]):
         super().__init__(values)
@@ -134,5 +140,6 @@ class UnconstrainHandler(ValuesHandler):
     def on_sample(self, addr, dist, sample_shape):
         value = super().on_sample(addr, dist, sample_shape)
         if dist.support.is_continuous:
-            self.z_out[addr] = dist.unconstraining_transform().inverse(value)
+            x = torch.as_tensor(value).to(settings.real_dtype())
+            self.z_out[addr] = dist.unconstraining_transform().inverse(x)
         return value

@@ -17,18 +17,22 @@ flat unconstrained position ``z``:
   CONSTRAINED layout that single-site MH proposes in, with any leading
   batch dimensions.
 
+Discrete sites (bool and integer values) are part of the site table and of
+every latent dict, but not of ``z``: the unconstrained functions take their
+values as ``discrete=`` and default to the discovery run's values, so HMC
+and NUTS hold them fixed while single-site MH proposes them.
+
 The model must have static structure: its set of addresses may not depend
 on sampled values. There is no ``jit`` here, so nothing is cached per
-engine configuration; the state a staged model carries is its site table
-and its ``device``. Discrete sites wait for the distributions that make
-them.
+engine configuration; the state a staged model carries is its site table,
+its discovery trace and its ``device``.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -59,6 +63,19 @@ class Site:
     @property
     def is_continuous(self) -> bool:
         return self.support.is_continuous
+
+    @property
+    def z_shape(self) -> Tuple[int, ...]:
+        """Shape of the site's UNCONSTRAINED parameterization: ``shape``,
+        except for simplex sites, whose stick-breaking transform maps k
+        components to k − 1 free coordinates."""
+        if self.support.kind == "simplex":
+            return tuple(self.shape[:-1]) + (self.support.size - 1,)
+        return tuple(self.shape)
+
+    @property
+    def z_size(self) -> int:
+        return math.prod(self.z_shape)
 
 
 @dataclass
@@ -98,18 +115,10 @@ class StagedModel:
                 continue
             shape = tuple(torch.as_tensor(c.value).shape)
             sites.append(Site(a, c.support, shape, c.kind, math.prod(shape)))
-        for s in sites:
-            if not s.is_continuous:
-                raise StagingError(
-                    ErrorCode.NOT_STAGEABLE,
-                    f"site {s.address!r} is discrete; the PyTorch port stages "
-                    "continuous sites only",
-                    {"address": s.address},
-                )
         self.sites: List[Site] = sites
         self.site_index: Dict[str, int] = {s.address: i for i, s in enumerate(sites)}
-        self.continuous_sites: List[Site] = list(sites)
-        self.discrete_sites: List[Site] = []  # no discrete distribution yet
+        self.continuous_sites: List[Site] = [s for s in sites if s.is_continuous]
+        self.discrete_sites: List[Site] = [s for s in sites if not s.is_continuous]
         self.observed_addresses = sorted(
             a for a, c in trace.choices.items() if c.is_observed
         )
@@ -120,10 +129,14 @@ class StagedModel:
             self._offsets[s.address] = (off, off + s.size)
             off += s.size
         self.constrained_dim = off
-        # flat unconstrained layout (z); the transforms ported so far keep
-        # each site's shape, so it matches the constrained one
-        self._z_offsets: Dict[str, Tuple[int, int]] = dict(self._offsets)
-        self.dim = off
+        # flat unconstrained layout (z); sizes differ for simplex sites
+        self._z_offsets: Dict[str, Tuple[int, int]] = {}
+        zoff = 0
+        for s in self.continuous_sites:
+            self._z_offsets[s.address] = (zoff, zoff + s.z_size)
+            zoff += s.z_size
+        self.dim = zoff
+        self._discovery_trace = trace
 
     # -- density ------------------------------------------------------------
 
@@ -189,45 +202,63 @@ class StagedModel:
     def _split_z(self, z) -> Dict[str, Any]:
         return {
             s.address: z[self._z_offsets[s.address][0]:
-                         self._z_offsets[s.address][1]].reshape(s.shape)
-            for s in self.sites
+                         self._z_offsets[s.address][1]].reshape(s.z_shape)
+            for s in self.continuous_sites
         }
 
-    def _constrain_run(self, z):
-        """One model replay in unconstrained space → (trace, Σ log|J|)."""
-        h = ConstrainHandler(self._split_z(z))
+    def merge_discrete(self, cont: Dict[str, Any],
+                       discrete: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        """``cont`` with the discrete sites' values added: from ``discrete``
+        where given, else the discovery run's."""
+        merged = dict(cont)
+        if discrete:
+            merged.update(discrete)
+        for s in self.discrete_sites:
+            merged.setdefault(s.address, self._discovery_trace.choices[s.address].value)
+        return merged
+
+    def _constrain_run(self, z, discrete: Optional[Dict[str, Any]] = None):
+        """One model replay in unconstrained space → (trace, Σ log|J|).
+        Transforms are rebuilt from each site's runtime distribution, so
+        dependent bounds use their current values."""
+        h = ConstrainHandler(self._split_z(z), self.merge_discrete({}, discrete))
         _, trace = self._run(h)
         return trace, h.logdet
 
-    def constrain(self, z) -> Tuple[Dict[str, Any], Any]:
-        """Unconstrained flat vector z → (constrained latent dict, Σ log|J|)."""
-        trace, logdet = self._constrain_run(z)
+    def constrain(self, z, discrete: Optional[Dict[str, Any]] = None
+                  ) -> Tuple[Dict[str, Any], Any]:
+        """Unconstrained flat vector z → (constrained continuous latents,
+        Σ log|J|)."""
+        trace, logdet = self._constrain_run(z, discrete)
         lat = trace.latents()
-        return {s.address: lat[s.address] for s in self.sites}, logdet
+        return {s.address: lat[s.address] for s in self.continuous_sites}, logdet
 
-    def unconstrain(self, latents: Dict[str, Any]):
-        """Constrained latent dict → flat unconstrained vector z."""
-        h = UnconstrainHandler(dict(latents))
+    def unconstrain(self, latents: Dict[str, Any],
+                    discrete: Optional[Dict[str, Any]] = None):
+        """Constrained latent dict → flat unconstrained vector z (the exact
+        inverse of ``constrain``, dependent bounds included)."""
+        h = UnconstrainHandler(self.merge_discrete(dict(latents), discrete))
         self._run(h)
-        parts = [h.z_out[s.address].reshape(-1) for s in self.sites]
+        parts = [h.z_out[s.address].reshape(-1) for s in self.continuous_sites]
         if not parts:
             return torch.zeros((0,), dtype=settings.real_dtype(), device=self.device)
         return torch.cat(parts)
 
-    def log_density_parts_unconstrained(self, z) -> Tuple[LogDensityParts, Any]:
+    def log_density_parts_unconstrained(self, z, discrete: Optional[Dict[str, Any]] = None
+                                        ) -> Tuple[LogDensityParts, Any]:
         """(density parts, Σ log|J|) in ONE model replay."""
-        trace, logdet = self._constrain_run(z)
+        trace, logdet = self._constrain_run(z, discrete)
         parts = LogDensityParts(trace.log_prior, trace.log_likelihood, trace.log_factors)
         return parts, logdet
 
-    def log_joint_unconstrained(self, z):
-        """log p(x(z)) + log|J(z)| — the target for HMC."""
-        parts, logdet = self.log_density_parts_unconstrained(z)
+    def log_joint_unconstrained(self, z, discrete: Optional[Dict[str, Any]] = None):
+        """log p(x(z), discrete) + log|J(z)|: the target for HMC and NUTS."""
+        parts, logdet = self.log_density_parts_unconstrained(z, discrete)
         return parts.total() + logdet
 
-    def potential(self, z):
+    def potential(self, z, discrete: Optional[Dict[str, Any]] = None):
         """U(z) = -(log p + log|J|) for one chain's z of shape (d,)."""
-        return -self.log_joint_unconstrained(z)
+        return -self.log_joint_unconstrained(z, discrete)
 
     def initial_position(self, seed: int):
         """Prior draw mapped to the unconstrained space."""

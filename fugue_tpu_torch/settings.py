@@ -32,6 +32,11 @@ def real_dtype() -> torch.dtype:
     return torch.float64 if x64_enabled() else torch.float32
 
 
+def int_dtype() -> torch.dtype:
+    """Dtype of integer-valued sites (categories, counts, ranges)."""
+    return torch.int64 if x64_enabled() else torch.int32
+
+
 # Accumulation policy for large observation plates: per-site log-prob sums
 # of >= COMPENSATED_SUM_THRESHOLD elements go through
 # core.numerics.compensated_sum. Below it a plain reduction is exact enough.

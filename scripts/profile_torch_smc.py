@@ -3,15 +3,18 @@
 
     python3 scripts/profile_torch_smc.py [--out DIR]
 
-For chip_smoke.py's SMC cells, bench.py's 20-site hierarchical model at
-131,072 particles in float32 with MH rejuvenation (3 steps) and with HMC
-rejuvenation (1 move of 16 leapfrogs): one warm-up run, one run timed with
-CUDA synchronisation (no profiler), then one run traced under
-``torch.profiler``. It reports the wall time, the device kernels and
-their device time per ladder stage, the device's idle share (one less the
-traced device time over the untraced wall time, and within the traced
-window), the device time of the two SMC kernels (logsumexp, systematic
-resampling) and the kernels with the most device time.
+For chip_smoke.py's SMC cells at 131,072 particles in float32: bench.py's
+20-site hierarchical model with MH rejuvenation (3 steps) and with HMC
+rejuvenation (1 move of 16 leapfrogs), the coin flip with the same two,
+and the mixture and mixed-discrete models with 5 MH steps. Per cell: one
+warm-up run (its wall is reported: it pays the first use of each CUDA
+kernel the model needs), one run timed with CUDA synchronisation (no
+profiler), then one run traced under ``torch.profiler``. It reports the
+wall time, the device kernels and their device time per ladder stage, the
+device's idle share (one less the traced device time over the untraced
+wall time, and within the traced window), the device time of the two SMC
+kernels (logsumexp, systematic resampling) and the kernels with the most
+device time.
 
 Then the resampling kernel alone, broken into its CUDA kernels, at 131,072
 float32 log-weights of two kinds: normal x 0.83 (ESS about N/2, the weights
@@ -37,7 +40,8 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import fugue_tpu_torch as ftt  # noqa: E402
-from chip_smoke import N_PARTICLES, hierarchical_model  # noqa: E402
+from chip_smoke import (N_PARTICLES, coin_model, hierarchical_model,  # noqa: E402
+                        mixed_discrete_model, mixture_model)
 from fugue_tpu_torch.ops import kernels as K  # noqa: E402
 
 # CUDA kernel names of csrc/logsumexp.cu and csrc/systematic_resample.cu
@@ -61,10 +65,27 @@ def _ours(per_kernel, which):
                if any(k in name for k in SMC_KERNELS[which]))
 
 
-def profile_smc(name, config, out_dir):
-    staged = ftt.stage(hierarchical_model("cuda"), device="cuda")
+MH = ftt.SMCConfig(rejuvenation_steps=3)
+HMC = ftt.SMCConfig(rejuvenation="hmc", rejuvenation_steps=1, hmc_leapfrog=16)
+MH5 = ftt.SMCConfig(rejuvenation_steps=5)
+CELLS = {
+    "mh": (lambda: hierarchical_model("cuda"), MH),
+    "hmc": (lambda: hierarchical_model("cuda"), HMC),
+    "coin_mh": (lambda: coin_model("cuda"), MH),
+    "coin_hmc": (lambda: coin_model("cuda"), HMC),
+    "mixture_mh": (lambda: mixture_model("cuda"), MH5),
+    "discrete_mh": (lambda: mixed_discrete_model("cuda"), MH5),
+}
+
+
+def profile_smc(name, out_dir):
+    make, config = CELLS[name]
+    staged = ftt.stage(make(), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     ftt.adaptive_smc(0, N_PARTICLES, staged=staged, config=config)  # warm-up
     torch.cuda.synchronize()
+    first_wall = time.perf_counter() - t0
     t0 = time.perf_counter()
     res = ftt.adaptive_smc(1, N_PARTICLES, staged=staged, config=config)
     torch.cuda.synchronize()
@@ -84,7 +105,9 @@ def profile_smc(name, config, out_dir):
         f.write(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=60))
     return {
         "cell": f"smc_{name}", "particles": N_PARTICLES, "stages": res.n_stages,
-        "traced_stages": stages, "wall_s": wall, "ms_per_stage": wall * 1e3 / res.n_stages,
+        "traced_stages": stages, "first_run_wall_s": first_wall, "wall_s": wall,
+        "ms_per_stage": wall * 1e3 / res.n_stages,
+        "particle_stages_per_s": N_PARTICLES * res.n_stages / wall,
         "kernels_per_stage": len(events) / stages,
         "device_ms_per_stage": busy_us * 1e-3 / stages,
         "device_idle_share": 1.0 - busy_us * 1e-6 / wall,
@@ -122,11 +145,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_smc: no CUDA device")
-    for name, cfg in (
-        ("mh", ftt.SMCConfig(rejuvenation_steps=3)),
-        ("hmc", ftt.SMCConfig(rejuvenation="hmc", rejuvenation_steps=1, hmc_leapfrog=16)),
-    ):
-        print(json.dumps(profile_smc(name, cfg, args.out)), flush=True)
+    for name in CELLS:
+        print(json.dumps(profile_smc(name, args.out)), flush=True)
     for kind, scale in (("ess_half", 0.83), ("degenerate_x4", 4.0)):
         print(json.dumps(profile_resample(kind, scale)), flush=True)
     return 0

@@ -102,8 +102,13 @@ def test_transforms_match_jax(kind):
 def test_transform_for_support():
     assert isinstance(ttr.transform_for_support(REAL), ttr.Identity)
     assert isinstance(ttr.transform_for_support(POSITIVE), ttr.Exp)
-    with pytest.raises(ftt.StagingError):
-        ttr.transform_for_support(Support("simplex", size=3))
+    assert isinstance(ttr.transform_for_support(Support("unit")), ttr.Sigmoid)
+    sb = ttr.transform_for_support(Support("simplex", size=3))
+    assert isinstance(sb, ttr.StickBreaking) and sb.unconstrained_shape((2, 3)) == (2, 2)
+    aff = ttr.transform_for_support(Support("interval", low=-1.0, high=2.0))
+    assert isinstance(aff, ttr.AffineSigmoid) and (aff.low, aff.high) == (-1.0, 2.0)
+    assert isinstance(ttr.transform_for_support(Support("interval")), ttr.Identity)
+    assert isinstance(ttr.transform_for_support(Support("boolean")), ttr.Identity)
 
 
 def test_log_sum_exp_matches_jax():

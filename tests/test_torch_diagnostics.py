@@ -149,3 +149,39 @@ def test_extractors_match_jax():
         want = getattr(jdiag, fn)(jt, addr)
         assert got.dtype == want.dtype and got.tolist() == want.tolist(), (fn, addr)
     assert tdiag.extract_int(tt, "k").tolist() == [0, 6]
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 10, 101])
+def test_quantile_matches_numpy(n):
+    """``mcmc_utils.quantile`` (from torch.sort) is numpy's default linear
+    quantile: scalar and listed q, batched rows, ties."""
+    rng = np.random.default_rng(n)
+    x = np.concatenate([rng.normal(size=(3, n)), np.round(rng.normal(size=(2, n)), 1)])
+    qs = [0.0, 0.025, 0.25, 0.5, 0.5 + 1e-9, 0.75, 0.975, 1.0]
+    got = tm.quantile(torch.as_tensor(x), qs).numpy()
+    np.testing.assert_allclose(got, np.moveaxis(np.quantile(x, qs, axis=-1), 0, -1), rtol=1e-14, atol=1e-15)
+    for q in (0.5, 0.9):
+        np.testing.assert_allclose(tm.quantile(torch.as_tensor(x), q).numpy(),
+                                   np.quantile(x, q, axis=-1), rtol=1e-14, atol=1e-15)
+
+
+# 1024 chains x 16,385 draws: just over 2^24 pooled draws, where
+# torch.quantile refuses its input
+BIG = (1024, 16385)
+
+
+def test_rank_normalized_split_r_hat_beyond_2_24_draws():
+    x = torch.as_tensor(np.random.default_rng(7).standard_normal(BIG))
+    assert x.numel() > 1 << 24
+    r = tm.rank_normalized_split_r_hat(x).item()
+    assert abs(r - 1.0) < 1e-3  # independent draws of one distribution
+    assert tm.quantile(x.reshape(-1), 0.5).item() == float(np.median(x.numpy()))
+
+
+def test_summaries_beyond_2_24_draws():
+    x = np.random.default_rng(8).standard_normal(BIG)
+    (s,) = tdiag.summarize_samples({"x": torch.as_tensor(x)})
+    want = np.quantile(x, tdiag.DEFAULT_QUANTILES)
+    np.testing.assert_allclose([s.quantiles[q] for q in tdiag.DEFAULT_QUANTILES], want,
+                               rtol=1e-14, atol=1e-15)
+    assert (s.n_chains, s.n_samples) == BIG

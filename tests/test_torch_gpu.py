@@ -8,7 +8,11 @@ conftest (which imports JAX):
 
 The HMC tests compare a CUDA run with the same computation on the CPU in
 float64, where the two differ only in summation order (tolerance 1e-10).
-The SMC kernels are held against their plain versions on the card:
+Every distribution's sampler draws on a CUDA generator inside
+``sample_prior_batch`` (``vmap(randomness="different")``), held to its
+mean within 6 standard errors, and its ``log_prob`` and gradient on CUDA
+equal the CPU's in float64 (1e-12). The SMC kernels are held against their
+plain versions on the card:
 logsumexp to 1e-12 relative in float64 and within the plain float32
 version's error of float64 in float32; systematic resampling in float64 to
 a deviation of at most 1 on fewer than 0.1% of slots, sorted, in range and
@@ -23,9 +27,11 @@ import torch
 from torch.func import grad_and_value, vmap
 
 import fugue_tpu_torch as ftt
-from chip_smoke import capture, conjugate_evidence_model, eight_schools_model, plate_model
+from chip_smoke import (capture, conjugate_evidence_model, eight_schools_model,
+                        mixed_discrete_exact, mixed_discrete_model, plate_model)
 from fugue_tpu_torch import settings
-from fugue_tpu_torch.inference import hmc, nuts
+from fugue_tpu_torch.inference import hmc, mh, nuts
+from fugue_tpu_torch.inference import mcmc_utils as mu_
 from fugue_tpu_torch.ops import kernels as K
 
 TOL = dict(rtol=1e-10, atol=1e-10)
@@ -247,3 +253,220 @@ def test_smc_kernels_from_views_graphs_and_without_weight():
         assert torch.equal(K.systematic_resample_from_u0(none, u0), ident)
         x[9] = math.nan
         assert torch.equal(K.systematic_resample_from_u0(x, u0), ident)
+
+
+# (constructor, parameters, mean) of one case per distribution
+SAMPLERS = {
+    "Normal": (ftt.Normal, (1.5, 2.0), 1.5),
+    "Uniform": (ftt.Uniform, (-2.0, 3.0), 0.5),
+    "LogNormal": (ftt.LogNormal, (0.5, 0.75), math.exp(0.5 + 0.75**2 / 2)),
+    "Exponential": (ftt.Exponential, (2.5,), 0.4),
+    "Beta": (ftt.Beta, (2.0, 5.0), 2.0 / 7.0),
+    "Gamma": (ftt.Gamma, (3.0, 2.0), 1.5),
+    "StudentT": (ftt.StudentT, (5.0, 1.0, 2.0), 1.0),
+    "Cauchy": (ftt.Cauchy, (0.5, 1.5), None),
+    "Laplace": (ftt.Laplace, (-1.0, 2.0), -1.0),
+    "Weibull": (ftt.Weibull, (1.8, 2.2), 2.2 * math.gamma(1 + 1 / 1.8)),
+    "ChiSquared": (ftt.ChiSquared, (4.0,), 4.0),
+    "InverseGamma": (ftt.InverseGamma, (3.0, 2.0), 1.0),
+    "HalfNormal": (ftt.HalfNormal, (1.7,), 1.7 * math.sqrt(2 / math.pi)),
+    "HalfCauchy": (ftt.HalfCauchy, (0.8,), None),
+    "Bernoulli": (ftt.Bernoulli, (0.3,), 0.3),
+    "BernoulliLogits": (ftt.BernoulliLogits, (-0.8,), 1 / (1 + math.exp(0.8))),
+    "Categorical": (lambda p: ftt.Categorical(probs=torch.tensor(p, device="cuda")),
+                    ([0.1, 0.2, 0.3, 0.4],), 2.0),
+    "Binomial": (ftt.Binomial, (20, 0.35), 7.0),
+    "Poisson": (ftt.Poisson, (4.5,), 4.5),
+    "Geometric": (ftt.Geometric, (0.35,), 0.65 / 0.35),
+    "NegativeBinomial": (ftt.NegativeBinomial, (6.0, 0.4), 6 * 0.6 / 0.4),
+    "DiscreteUniform": (ftt.DiscreteUniform, (-3, 6), 1.5),
+    "Dirichlet": (lambda c: ftt.Dirichlet(torch.tensor(c, device="cuda")), ([1.0, 2.0, 3.0],),
+                  1.0 / 6.0),
+    "MultivariateNormal": (lambda loc, cov: ftt.MultivariateNormal(
+        torch.tensor(loc, device="cuda"), torch.tensor(cov, device="cuda")),
+        ([0.5, -1.0], [[1.0, 0.6], [0.6, 2.0]]), 0.5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SAMPLERS))
+def test_sampler_under_vmap_on_a_cuda_generator(name):
+    ctor, args, mean = SAMPLERS[name]
+    n = 20000
+
+    def model():
+        ftt.sample("x", ctor(*args))
+
+    x = ftt.stage(model, device="cuda").sample_prior_batch(7, n)["x"]
+    assert x.is_cuda and x.shape[0] == n
+    assert x.dtype == ctor(*args).dtype
+    first = x.reshape(n, -1)[:, 0].double()
+    assert bool(torch.isfinite(first).all()) and len(torch.unique(first[:100])) > 1
+    if mean is not None:
+        sd = first.std().item()
+        assert abs(first.mean().item() - mean) < 6 * sd / math.sqrt(n), (first.mean(), mean)
+
+
+def _grid(name, n=32):
+    """Per-element float64 parameters and values, on the CPU."""
+    r = np.random.default_rng(len(name))
+    pos = lambda: np.exp(r.normal(0.0, 0.5, n))  # noqa: E731
+    if name == "Categorical":
+        return [r.dirichlet(np.ones(4), n)], r.integers(-1, 5, n).astype(np.float64)
+    if name == "Dirichlet":
+        return [np.exp(r.normal(0, 0.5, (n, 3)))], r.dirichlet(np.ones(3), n)
+    if name == "MultivariateNormal":
+        a = np.tril(r.normal(0, 0.4, (n, 2, 2)), -1) + np.eye(2) * 1.3
+        return [r.normal(0, 1, (n, 2)), a @ np.swapaxes(a, -1, -2)], r.normal(0, 1.5, (n, 2))
+    k = {"Uniform": 2, "StudentT": 3, "Binomial": 2, "NegativeBinomial": 2,
+         "DiscreteUniform": 2}.get(name, len(SAMPLERS[name][1]))
+    params = [pos() for _ in range(k)]
+    if name in ("Bernoulli", "Geometric"):
+        params = [r.uniform(0.05, 0.95, n)]
+    if name in ("Binomial", "NegativeBinomial"):
+        params[1] = r.uniform(0.05, 0.95, n)
+    if name in ("Binomial", "DiscreteUniform"):
+        params[0] = r.integers(0, 6, n).astype(np.float64)
+    if name == "DiscreteUniform":
+        params[1] = params[0] + r.integers(0, 4, n)
+    if name in ("Normal", "Cauchy", "Laplace", "BernoulliLogits"):
+        params[0] = r.normal(0, 1.5, n)
+    if name in ("Bernoulli", "BernoulliLogits"):
+        return params, r.uniform(size=n) < 0.5
+    if name in ("Binomial", "Poisson", "Geometric", "NegativeBinomial", "DiscreteUniform"):
+        return params, r.integers(-1, 8, n).astype(np.float64)
+    return params, r.normal(1.0, 1.5, n)
+
+
+@pytest.mark.parametrize("name", sorted(SAMPLERS))
+def test_log_prob_on_cuda_equals_cpu_in_float64(name):
+    params, values = _grid(name)
+    cls = getattr(ftt, name)
+    kw = {"Categorical": lambda p: cls(probs=p),
+          "MultivariateNormal": lambda loc, c: cls(loc, covariance=c)}.get(name, cls)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ps = [torch.as_tensor(p, device=dev) for p in params]
+        v = torch.as_tensor(values, device=dev)
+
+        def lp(*a):
+            return kw(*a[:-1]).log_prob(a[-1])
+
+        vals = vmap(lp)(*ps, v)
+        grads = vmap(torch.func.grad(lp, argnums=tuple(range(len(ps)))))(*ps, v)
+        out[dev] = [vals] + list(grads)
+    for c, g in zip(out["cpu"], out["cuda"]):
+        np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=1e-12, atol=1e-12)
+
+
+def test_mh_step_on_cuda_equals_cpu_for_the_same_draws():
+    """One batched MH step on the mixed-discrete model, with a count and a
+    categorical site added, from the same particles and the same draws
+    (made on the CPU): the CUDA step equals the CPU step."""
+    def model(device):
+        base = mixed_discrete_model(device, torch.float64)
+
+        def m():
+            base()
+            ftt.sample("n", ftt.Poisson(3.0))
+            ftt.sample("c", ftt.Categorical(probs=torch.tensor([0.2, 0.5, 0.3], device=device)))
+
+        return m
+
+    b = 256
+    g = torch.Generator().manual_seed(3)
+    cpu = ftt.stage(model("cpu"), device="cpu")
+    lat = cpu.sample_prior_batch(5, b)
+    adapt = mu_.AdaptationState(torch.log(torch.tensor([0.5, 2.6, 0.5, 0.7], dtype=torch.float64)),
+                                torch.zeros(4, dtype=torch.float64))
+    idx = torch.randint(0, 4, (b,), generator=g)
+    eps = torch.randn((b, cpu.constrained_dim), generator=g, dtype=torch.float64)
+    log_u = torch.log(torch.rand((b,), generator=g, dtype=torch.float64))
+    disc = mh.draw_discrete_noise(cpu, adapt.scale(), g, b)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st = cpu if dev == "cpu" else ftt.stage(model("cuda"), device="cuda")
+        to = lambda t: t.to(dev)  # noqa: E731
+        lat_d = {a: to(v) for a, v in lat.items()}
+        state = mh.MHState(lat_d, vmap(st.log_joint)(lat_d),
+                           mu_.AdaptationState(to(adapt.log_scale), to(adapt.t)))
+        noise = {a: (None if v is None else tuple(map(to, v)) if isinstance(v, tuple) else to(v))
+                 for a, v in disc.items()}
+        out[dev] = mh.mh_step_from_noise(st, state, to(idx), to(eps), to(log_u), True,
+                                         discrete_noise=noise)
+    (sc, ac), (sg, ag) = out["cpu"], out["cuda"]
+    assert torch.equal(ag.cpu(), ac) and 0 < int(ac.sum()) < b
+    for a in lat:
+        assert torch.equal(sg.latents[a].cpu(), sc.latents[a]) or np.allclose(
+            sg.latents[a].cpu().numpy(), sc.latents[a].numpy(), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(sg.log_joint.cpu().numpy(), sc.log_joint.numpy(), **TOL)
+
+
+def test_smc_on_the_mixed_discrete_model_on_cuda():
+    staged = ftt.stage(mixed_discrete_model("cuda", torch.float64), device="cuda")
+    before = dict(K.LAUNCHES)
+    res = ftt.adaptive_smc(2, 32768, staged=staged, config=ftt.SMCConfig(rejuvenation_steps=5))
+    torch.cuda.synchronize()
+    s = res.n_stages
+    log_z, p_heads = mixed_discrete_exact()
+    assert res.converged and s >= 2 and res.particles["heads"].dtype == torch.bool
+    assert K.LAUNCHES["resample"] - before["resample"] == s - 1
+    assert K.LAUNCHES["lse"] - before["lse"] == 4 * s + 3
+    assert abs(res.posterior_mean("heads").item() - p_heads) < 0.02
+    assert abs(res.log_evidence - log_z) < 0.1
+
+
+# torch's random functions that the port calls with an explicit generator
+_RANDOM = ("rand", "randn", "randint", "bernoulli", "poisson", "binomial", "multinomial",
+           "_standard_gamma")
+
+
+def _cpu_draws(monkeypatch):
+    """Make every draw on a CUDA generator come from a CPU generator with the
+    same seed, moved to the card: a CUDA run then takes the draws of the
+    same run on the CPU."""
+    mirrors = {}
+
+    def mirror(g):
+        if g not in mirrors:
+            mirrors[g] = torch.Generator().manual_seed(g.initial_seed())
+        return mirrors[g]
+
+    def wrap(fn):
+        def draw(*args, generator=None, **kw):
+            if generator is None or generator.device.type != "cuda":
+                return fn(*args, generator=generator, **kw)
+            dev = kw.pop("device", None) or generator.device
+            args = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+            if any(isinstance(a, torch.Tensor) for a in args):
+                return fn(*args, generator=mirror(generator), **kw).to(dev)
+            return fn(*args, generator=mirror(generator), device="cpu", **kw).to(dev)
+
+        return draw
+
+    for name in _RANDOM:
+        monkeypatch.setattr(torch, name, wrap(getattr(torch, name)))
+
+
+def test_smc_on_the_mixed_discrete_model_on_cuda_equals_cpu(monkeypatch):
+    """The same adaptive_smc run on the CPU and on the card, with the same
+    draws: the same ladder, and the same particles but where the resample
+    kernel's float64 rounding moves an ancestor by one (kernel tests: under
+    0.1% of slots), so the posterior and log Z agree far inside their
+    Monte-Carlo error."""
+    n, cfg = 32768, ftt.SMCConfig(rejuvenation_steps=5)
+    res = {dev: None for dev in ("cpu", "cuda")}
+    res["cpu"] = ftt.adaptive_smc(4, n, staged=ftt.stage(mixed_discrete_model("cpu", torch.float64),
+                                                         device="cpu"), config=cfg)
+    _cpu_draws(monkeypatch)
+    before = dict(K.LAUNCHES)
+    res["cuda"] = ftt.adaptive_smc(4, n, staged=ftt.stage(mixed_discrete_model("cuda", torch.float64),
+                                                          device="cuda"), config=cfg)
+    c, g = res["cpu"], res["cuda"]
+    s = g.n_stages
+    assert s == c.n_stages and s >= 2 and g.particles["heads"].is_cuda
+    assert K.LAUNCHES["resample"] - before["resample"] == s - 1
+    same = torch.isclose(g.particles["mu"].cpu(), c.particles["mu"], rtol=1e-9, atol=1e-12)
+    same &= torch.eq(g.particles["heads"].cpu(), c.particles["heads"])
+    assert same.double().mean().item() > 0.99
+    assert abs(g.posterior_mean("heads").item() - c.posterior_mean("heads").item()) < 2e-3
+    assert abs(g.log_evidence - c.log_evidence) < 1e-3

@@ -299,3 +299,63 @@ def test_interop_takes_a_dense_mass():
     for bad in (np.ones((3, 2)), np.ones((2, 2)), np.ones((3, 3, 3))):
         with pytest.raises(ValueError):
             hmc_state_from_numpy(q, 0.3, bad, device="cpu")
+
+
+# Not positive definite: indefinite, and singular (Cholesky's second pivot 0)
+BAD_MASS = {"indefinite": [[1.0, 2.0], [2.0, 1.0]], "singular": [[1.0, 1.0], [1.0, 1.0]]}
+
+
+@pytest.mark.parametrize("which", sorted(BAD_MASS))
+def test_non_positive_definite_mass_gives_nan_momenta(which):
+    """JAX's Cholesky of a Σ that is not positive definite is NaN, so are its
+    momenta; the port reads cholesky_ex's error code on the device."""
+    im = np.array(BAD_MASS[which])
+    want = jhmc.mass_draw_momentum(jax.random.PRNGKey(0), jnp.asarray(im), (2,), jnp.float64)
+    assert np.isnan(np.asarray(want)).all()
+    got = thmc.momentum_from_normal(torch.as_tensor(im), torch.tensor([0.3, -0.7], dtype=torch.float64))
+    assert torch.isnan(got).all()
+    draws = thmc.mass_draw_momentum(torch.Generator().manual_seed(0), torch.as_tensor(im), (5, 2))
+    assert draws.shape == (5, 2) and torch.isnan(draws).all()
+    # a positive-definite Σ in the same batch of calls is untouched
+    assert torch.isfinite(thmc.momentum_from_normal(torch.as_tensor(_cov(2)), torch.ones(4, 2,
+                                                    dtype=torch.float64))).all()
+
+
+@pytest.mark.parametrize("which", sorted(BAD_MASS))
+def test_non_positive_definite_mass_rejects_every_transition(which):
+    """HMC and NUTS transitions from the NaN momenta are divergent and
+    rejected in both packages: the chains stay where they were."""
+    from fugue_tpu.inference import nuts as jnuts
+    from fugue_tpu_torch.inference import nuts as tnuts
+
+    im = np.array(BAD_MASS[which])
+    jim, tim = jnp.asarray(im), torch.as_tensor(im)
+    n = 6
+    q = np.random.default_rng(13).normal(size=(n, 2))
+    keys = jax.random.split(jax.random.PRNGKey(14), n)
+
+    def jpot(z):
+        return 0.5 * jnp.sum(z * z)
+
+    def tpot(z):
+        return 0.5 * torch.sum(z * z)
+
+    jq, jinfo = jax.vmap(lambda q, k: jhmc.hmc_transition(jpot, q, k, 0.2, 5, jim))(q, keys)
+    gen = torch.Generator().manual_seed(15)
+    p = thmc.mass_draw_momentum(gen, tim, (n, 2))
+    log_u = torch.log(torch.rand(n, generator=gen, dtype=torch.float64))
+    tq, tinfo = thmc.hmc_transition(tpot, torch.as_tensor(q), p, log_u, 0.2, 5, tim)
+    np.testing.assert_array_equal(np.asarray(jq), q)
+    np.testing.assert_array_equal(tq.numpy(), q)
+    for name in ("divergent", "accepted", "accept_prob"):
+        np.testing.assert_array_equal(getattr(tinfo, name).numpy(), np.asarray(getattr(jinfo, name)))
+    assert tinfo.divergent.all() and not tinfo.accepted.any()
+
+    jz, jn = jax.vmap(lambda q, k: jnuts.nuts_transition(jpot, q, k, 0.2, jim, 4, loop="while"))(q, keys)
+    noise = tnuts.draw_nuts_noise(gen, tim, n, 4)
+    tz, tn = tnuts.nuts_transition(tpot, torch.as_tensor(q), noise, 0.2, tim, 4)
+    np.testing.assert_array_equal(np.asarray(jz), q)
+    np.testing.assert_array_equal(tz.numpy(), q)
+    for name in ("diverging", "accept_prob", "depth", "n_leapfrog"):
+        np.testing.assert_array_equal(tn[name].numpy(), np.asarray(jn[name]))
+    assert tn["diverging"].all()
