@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's HMC, SMC and NUTS main paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's HMC, SMC, NUTS, ChEES and MH main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py                      # all phases
     python3 chip_smoke.py --phases build,kernel
     python3 chip_smoke.py --phases build,smc_kernels,smc
     python3 chip_smoke.py --phases build,nuts_eight_schools,nuts_plate
     python3 chip_smoke.py --phases build,smc_coin,smc_mixture,smc_discrete
+    python3 chip_smoke.py --phases build,chees_eight_schools,chees_plate,mh_coin,mh_hierarchical
 
 Phases (each prints JSON lines; any failure raises and exits non-zero):
 
@@ -71,6 +72,32 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  Each SMC run of phases 6 and 9-11 checks both kernels'
                  launch counts (4 * stages + 3 logsumexp, stages - 1
                  resample), and the kernels line sums them over all five.
+12. chees_eight_schools  ftt.chees_chain at bench_chees's shape: 1024 chains,
+                 ChEESConfig(target_accept=0.8), float32, 200 warmup + 200
+                 samples; gates on split-R-hat, divergence rate (< 3%), the
+                 posterior mean of mu, criterion_advice (no switch), one tau
+                 read per transition (counted by the drive, and one host
+                 sync measured in one transition under CUDA sync debugging).
+                 Reports grad-evals/s, ESS/s, mean L, T, epsilon, host syncs
+                 per transition and ms per batched gradient.
+13. chees_plate  ftt.chees_chain on the 2^20-row plate, 64 chains, target
+                 0.8, 200 + 200, from a warm start at the data's moments
+                 (mean, log sd) with jitter 0.01 per chain: from the uniform
+                 init ChEES, which has no chain rescue, leaves chains stuck
+                 where the shared step size diverges (so does the JAX
+                 package; scripts/chees_plate_uniform_init.py). The plate's
+                 gates, one kernel call per batched model run and one tau
+                 read per transition.
+14. mh_coin      ftt.adaptive_mcmc_chain on the coin flip (BASELINE config 1),
+                 4,096 chains, 300 warmup + 300 samples; gates on mean p
+                 within 5 MC-SE of 20/31 and exactly 1 + n_warmup + n_samples
+                 batched model runs.
+15. mh_hierarchical  ftt.adaptive_mcmc_chain on the 20-site hierarchical
+                 model at bench_mh's shape, 262,144 chains, 50 + 50, float32;
+                 transitions/s and ms per transition; gates on the run
+                 count, finite log joints and per-chain acceptance rates in
+                 (0, 1) (not the posterior: 100 transitions from the prior
+                 have not mixed).
 
 Then it prints the card's name and power limit, one JSON line describing
 the kernels, and as the last line
@@ -95,7 +122,8 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernel", "eight_schools", "gaussian_plate", "smc_kernels", "smc",
-          "nuts_eight_schools", "nuts_plate", "smc_coin", "smc_mixture", "smc_discrete")
+          "nuts_eight_schools", "nuts_plate", "smc_coin", "smc_mixture", "smc_discrete",
+          "chees_eight_schools", "chees_plate", "mh_coin", "mh_hierarchical")
 SOURCES = ("normal_loglik_sum", "logsumexp", "systematic_resample")
 REPLACES = {
     # _nll_fwd_kernel and _nll_bwd_kernel, one value-and-grad kernel here
@@ -538,7 +566,7 @@ def _check_plate(post, launches, model_runs, what):
 
 
 def _plate_run(run):
-    """``run(staged)`` on the plate model over plate_data at
+    """``run(staged, y)`` on the plate model over y = plate_data at
     MAIN_SHAPE's rows, timed, with the kernel's launch counts and the
     batched model runs set to 0 just before and read just after."""
     import fugue_tpu_torch as ftt
@@ -552,7 +580,7 @@ def _plate_run(run):
     for k in K.LAUNCHES:
         K.LAUNCHES[k] = 0
     t0 = time.perf_counter()
-    res = run(staged)
+    res = run(staged, y)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return y, res, wall, dict(K.LAUNCHES), model_runs[0]
@@ -565,8 +593,8 @@ def phase_gaussian_plate():
     n = MAIN_SHAPE[1]
     cfg = ftt.HMCConfig(n_leapfrog=L, jitter=0.5)
     y, res, wall, launches, model_runs = _plate_run(
-        lambda staged: ftt.hmc_chain(3, n_samples=n_samples, n_warmup=n_warmup, config=cfg,
-                                     n_chains=n_chains, staged=staged))
+        lambda staged, y: ftt.hmc_chain(3, n_samples=n_samples, n_warmup=n_warmup, config=cfg,
+                                        n_chains=n_chains, staged=staged))
     post = _plate_posterior(res, y, n_chains, n_samples, "plate")
     n_transitions = n_warmup + n_samples
     grad_evals = n_transitions * (L + 1)
@@ -1120,8 +1148,9 @@ def phase_nuts_plate():
     n_chains, n_warmup, n_samples = MAIN_SHAPE[0], 200, 200
     n = MAIN_SHAPE[1]
     y, res, wall, launches, model_runs = _plate_run(
-        lambda staged: ftt.nuts_chain(3, n_samples=n_samples, n_warmup=n_warmup,
-                                      config=ftt.NUTSConfig(), n_chains=n_chains, staged=staged))
+        lambda staged, y: ftt.nuts_chain(3, n_samples=n_samples, n_warmup=n_warmup,
+                                         config=ftt.NUTSConfig(), n_chains=n_chains,
+                                         staged=staged))
     post = _plate_posterior(res, y, n_chains, n_samples, "nuts plate")
     n_transitions = n_warmup + n_samples
     grad_evals = res.n_leapfrogs + n_chains * n_transitions  # each chain's own
@@ -1138,6 +1167,189 @@ def phase_nuts_plate():
     check(launches["nll"] >= res.lockstep_leaves + n_transitions,
           f"{launches['nll']} plate kernel calls for {res.lockstep_leaves} leaves")
     return launches
+
+
+def _host_syncs(fn) -> int:
+    """The synchronizing CUDA operations (device-to-host reads) one ``fn()``
+    call makes, counted by PyTorch's sync debugging in its warning mode."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # (the mode's own notice that it is a prototype is a warning too)
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def _chees_stats(res, n_chains, n_transitions, wall):
+    """ChEES's costs: grad-evals as bench_chees counts them (every chain's
+    leapfrogs plus one evaluation at each trajectory's start), the batched
+    gradient runs, and the tau reads per transition."""
+    batched = res.n_leapfrogs // n_chains + n_transitions
+    return {"grad_evals_per_s": (res.n_leapfrogs + n_chains * n_transitions) / wall,
+            "mean_leapfrog": res.mean_leapfrog, "n_leapfrogs": res.n_leapfrogs,
+            "trajectory_length": res.trajectory_length, "step_size": res.step_size,
+            "trajectory_cap_reached": res.trajectory_cap_reached,
+            "batched_gradients": batched, "ms_per_batched_gradient": 1e3 * wall / batched,
+            "host_syncs_per_transition": res.host_syncs / n_transitions}
+
+
+def phase_chees_eight_schools():
+    """ChEES-HMC at bench_chees's shape, cut to 200 + 200 transitions."""
+    import fugue_tpu_torch as ftt
+    from fugue_tpu_torch.inference import chees
+
+    n_chains, n_warmup, n_samples = 1024, 200, 200
+    staged = ftt.stage(eight_schools_model("cuda"), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ftt.chees_chain(7, n_samples=n_samples, n_warmup=n_warmup,
+                          config=ftt.ChEESConfig(target_accept=0.8), n_chains=n_chains,
+                          staged=staged)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    post = _eight_schools_posterior(res, n_chains, n_samples, "chees eight_schools")
+    n_transitions = n_warmup + n_samples
+    advice = res.criterion_advice()
+    # one more transition at the learned kernel, its step size and T on the
+    # card as in the drive: the host reads it makes
+    g = torch.Generator(device="cuda").manual_seed(1)
+    eps, T = (torch.tensor(x, device="cuda") for x in (res.step_size, res.trajectory_length))
+
+    def one():
+        z = torch.randn(res.final_positions.shape, generator=g, device="cuda")
+        log_u = torch.log1p(-torch.rand(n_chains, generator=g, device="cuda"))
+        return chees.chees_transition(staged.potential, res.final_positions, z, log_u, eps, T,
+                                      0.75, res.inv_mass, 1024)
+
+    one()
+    syncs = _host_syncs(one)
+    emit({"phase": "chees_eight_schools", "card": card_line(), "chains": n_chains,
+          "warmup": n_warmup, "samples": n_samples, "target_accept": 0.8, "wall_s": wall,
+          "ess_per_s": min(post["ess_mu"], post["ess_tau"]) / wall, **post,
+          **_chees_stats(res, n_chains, n_transitions, wall),
+          "host_syncs_of_one_transition": syncs, "criterion_advice": advice})
+    rhat, div, z = post["split_rhat_mu"], post["divergence_rate"], post["mu_z"]
+    check(rhat < 1.02, f"chees eight_schools split-R-hat(mu) {rhat} >= 1.02")
+    check(div < 0.03, f"chees eight_schools divergence rate {div} >= 0.03")
+    check(abs(z) < 5.0, f"chees eight_schools mu mean {post['mu_mean']} is {z:.2f} MC-SE "
+          f"from {EIGHT_SCHOOLS_MU_MEAN}")
+    check(advice["recommendation"] is None, f"chees eight_schools advice: {advice}")
+    check(res.host_syncs == n_transitions,
+          f"chees eight_schools: {res.host_syncs} tau reads in {n_transitions} transitions")
+    check(syncs == 1, f"one chees transition made {syncs} host syncs, not 1")
+
+
+def phase_chees_plate():
+    """ChEES-HMC on the 2^20-row plate from a warm start at the data's
+    moments; the plate kernel once per batched model run."""
+    import fugue_tpu_torch as ftt
+
+    n_chains, n_warmup, n_samples = MAIN_SHAPE[0], 200, 200
+    n = MAIN_SHAPE[1]
+
+    def run(staged, y):
+        y64 = y.double()
+        z0 = torch.stack([y64.mean(), torch.log(y64.std(correction=0))]).float()
+        return ftt.chees_chain(3, n_samples=n_samples, n_warmup=n_warmup,
+                               config=ftt.ChEESConfig(target_accept=0.8), n_chains=n_chains,
+                               staged=staged, init_position=z0, init_jitter=0.01)
+
+    y, res, wall, launches, model_runs = _plate_run(run)
+    post = _plate_posterior(res, y, n_chains, n_samples, "chees plate")
+    n_transitions = n_warmup + n_samples
+    stats = _chees_stats(res, n_chains, n_transitions, wall)
+    emit({"phase": "chees_plate", "card": card_line(), "chains": n_chains, "rows": n,
+          "warmup": n_warmup, "samples": n_samples, "target_accept": 0.8,
+          "init": "data moments + 0.01 jitter",
+          "wall_s": wall, "rows_per_s": stats["grad_evals_per_s"] * n,
+          "ess_per_s": post["ess_min"] / wall, "batched_model_runs": model_runs,
+          "launches": launches, **post, **stats})
+    _check_plate(post, launches, model_runs, "chees plate")
+    # L + 1 batched runs per transition, besides the epsilon search and the
+    # final constrain pass
+    check(model_runs > stats["batched_gradients"],
+          f"chees plate: {model_runs} model runs for {stats['batched_gradients']} gradients")
+    check(res.host_syncs == n_transitions,
+          f"chees plate: {res.host_syncs} tau reads in {n_transitions} transitions")
+    return launches
+
+
+def _counted(model):
+    """``model`` with a counter of its runs: (counted model, [runs])."""
+    runs = [0]
+
+    def counted():
+        runs[0] += 1
+        return model()
+
+    return counted, runs
+
+
+def _mh_run(phase, model, n_chains, n_warmup, n_samples, seed):
+    """One ftt.adaptive_mcmc_chain run, timed, with its batched model runs
+    counted from just before to just after; checks the run-count contract
+    and the log joints."""
+    import fugue_tpu_torch as ftt
+
+    counted, runs = _counted(model)
+    staged = ftt.stage(counted, device="cuda")
+    torch.cuda.synchronize()
+    runs[0] = 0
+    t0 = time.perf_counter()
+    res = ftt.adaptive_mcmc_chain(seed, staged=staged, n_samples=n_samples, n_warmup=n_warmup,
+                                  n_chains=n_chains)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_transitions = n_warmup + n_samples
+    rate = res.accept_rate.double().cpu()
+    row = {"phase": phase, "card": card_line(), "chains": n_chains, "warmup": n_warmup,
+           "samples": n_samples, "dtype": str(res.log_joint.dtype), "wall_s": wall,
+           "transitions_per_s": n_chains * n_transitions / wall,
+           "ms_per_transition": 1e3 * wall / n_transitions, "batched_model_runs": runs[0],
+           "accept_rate_mean": rate.mean().item(), "accept_rate_min": rate.min().item(),
+           "accept_rate_max": rate.max().item()}
+    check(runs[0] == 1 + n_transitions,
+          f"{phase}: {runs[0]} batched model runs, want 1 + {n_warmup} + {n_samples}")
+    check(res.log_joint.shape == (n_chains, n_samples)
+          and bool(torch.isfinite(res.log_joint).all()), f"{phase}: log joints not finite")
+    return row, res
+
+
+def phase_mh_coin():
+    """Adaptive MH on the coin flip: mean p within 5 MC-SE of 20/31."""
+    from fugue_tpu_torch.inference.mcmc_utils import ess_multichain
+
+    row, res = _mh_run("mh_coin", coin_model("cuda"), 4096, 300, 300, 11)
+    p = res.samples["p"].double().cpu()
+    p_exact = coin_exact()[1]
+    ess = ess_multichain(p).item()
+    mcse = p.std().item() / math.sqrt(ess)
+    row.update(p_mean=p.mean().item(), p_exact=p_exact, ess_p=ess, p_mcse=mcse,
+               p_z=(p.mean().item() - p_exact) / mcse)
+    emit(row)
+    check(abs(row["p_z"]) < 5.0, f"mh_coin: mean p {row['p_mean']} is {row['p_z']:.2f} MC-SE "
+          f"from {p_exact}")
+
+
+def phase_mh_hierarchical():
+    """Adaptive MH at bench_mh's shape: 262,144 chains of the 20-site
+    hierarchical model, 50 warmup + 50 samples, float32, not cut. At this
+    length from the prior the chains have not mixed, so the phase gates the
+    driver's contracts (1 + 50 + 50 batched model runs, finite log joints,
+    every chain's acceptance rate strictly between 0 and 1), not the
+    posterior."""
+    row, res = _mh_run("mh_hierarchical", hierarchical_model("cuda"), 262144, 50, 50, 13)
+    row["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    emit(row)
+    check(row["accept_rate_min"] > 0.0 and row["accept_rate_max"] < 1.0,
+          f"mh_hierarchical: acceptance rates span [{row['accept_rate_min']}, "
+          f"{row['accept_rate_max']}]")
 
 
 def card_line() -> str:
@@ -1161,7 +1373,7 @@ def main(argv=None) -> int:
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     import fugue_tpu_torch  # noqa: F401  (fails outside a checkout)
 
-    kernel_rows = launches = smc_rows = nuts_launches = None
+    kernel_rows = launches = smc_rows = nuts_launches = chees_launches = None
     smc_launches = {"lse": 0, "resample": 0}
     if "build" in phases:
         phase_build()
@@ -1183,6 +1395,14 @@ def main(argv=None) -> int:
                         ("smc_discrete", phase_smc_discrete)):
         if name in phases:
             _add_launches(smc_launches, phase())
+    if "chees_eight_schools" in phases:
+        phase_chees_eight_schools()
+    if "chees_plate" in phases:
+        chees_launches = phase_chees_plate()
+    if "mh_coin" in phases:
+        phase_mh_coin()
+    if "mh_hierarchical" in phases:
+        phase_mh_hierarchical()
 
     print(card_line(), flush=True)
     if set(phases) != set(PHASES):
@@ -1197,9 +1417,10 @@ def main(argv=None) -> int:
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
     emit({"kernels": [
-        # the plate kernel's calls on both of its paths: HMC and NUTS
+        # the plate kernel's calls on its three paths: HMC, NUTS and ChEES
         entry("normal_loglik_sum_value_and_grad", "nll", "normal_loglik_sum",
-              kernel_rows[MAIN_SHAPE], launches["nll"] + nuts_launches["nll"]),
+              kernel_rows[MAIN_SHAPE],
+              launches["nll"] + nuts_launches["nll"] + chees_launches["nll"]),
         # the SMC kernels' calls on their five paths: the smc phase's three
         # runs and the coin (two runs), mixture and discrete phases
         entry("logsumexp", "lse", "logsumexp", smc_rows[("lse", N_PARTICLES)],

@@ -1,6 +1,6 @@
 """fugue_tpu_torch: the PyTorch/CUDA port of fugue_tpu.
 
-Three engines run end to end on one device over the model language of the
+Five engines run end to end on one device over the model language of the
 JAX package: its 24 distributions, with discrete sites and the bounded,
 simplex and dependent-bound transforms, and the ``masked``, ``cond``,
 ``plate`` and ``Model`` combinators. Vectorized HMC and NUTS: the
@@ -14,6 +14,9 @@ diagnostics, and the Gaussian-plate likelihood kernel in CUDA
 the ESS-driven β ladder, single-site MH or HMC rejuvenation, and the
 log-sum-exp and systematic-resampling kernels in CUDA
 (``ops.kernels.plogsumexp``, ``ops.kernels.psystematic_resample``).
+ChEES-HMC: one trajectory length for all chains, learned from the chain
+batch, with ``CheesSession``. Adaptive single-site MH over a chain batch
+(``adaptive_mcmc_chain``).
 Entry points run on the card (``device="cuda"``) unless the caller names
 another device. Module paths and public names mirror ``fugue_tpu``. The
 package imports no JAX.
@@ -85,6 +88,7 @@ from .core.model import (
 )
 from .core.rng import address_seed
 from .core import transforms
+from .inference.chees import ChEESConfig, ChEESResult, CheesSession, chees_chain
 from .inference.diagnostics import ParameterSummary, print_diagnostics, summarize_samples
 from .inference.hmc import HMCConfig, HMCResult, HmcSession, hmc_chain, hmc_transition
 from .inference.mcmc_utils import (
@@ -95,6 +99,7 @@ from .inference.mcmc_utils import (
     rank_normalized_split_r_hat,
     split_r_hat,
 )
+from .inference.mh import MHResult, adaptive_mcmc_chain
 from .inference.nuts import NUTSConfig, NUTSResult, NutsSession, nuts_chain, nuts_transition
 from .inference.smc import SMCConfig, SMCResult, adaptive_smc, importance_reweight
 from .ops.kernels import pnormal_loglik_sum

@@ -1,9 +1,11 @@
 """Single-site Metropolis-Hastings, batched over particles.
 
-The port of the part of ``fugue_tpu/inference/mh.py`` that SMC's
-rejuvenation calls: ``MHState``, ``_reflect_into``, ``_packed_meta``, the
+The port of ``fugue_tpu/inference/mh.py``'s single-device path:
+``MHState``, ``init_mh_state``, ``_reflect_into``, ``_packed_meta``, the
 discrete proposals (``_propose_flip``, ``_propose_discrete_walk``,
-``_propose_categorical``, ``make_site_proposal``) and ``mh_step``.
+``_propose_categorical``, ``make_site_proposal``), ``mh_step`` (which SMC's
+rejuvenation also calls), ``MHResult`` and the adaptive driver
+``adaptive_mcmc_chain``.
 
 One step moves every particle (or chain) of a batch at once:
 
@@ -23,7 +25,13 @@ One step moves every particle (or chain) of a batch at once:
 discrete site its walk or category draws) from a ``torch.Generator``;
 ``mh_step_from_noise`` holds the arithmetic and takes that noise as
 arguments, so the tests can hand it the JAX step's own draws.
-``adaptive_mcmc_chain`` waits for a later slice.
+
+``adaptive_mcmc_chain`` runs C chains as one batch, each with its own
+per-site scales: the initial state is ONE batched prior run that also
+scores the draws (``init_mh_state``), and every transition is one batched
+replay, so a run makes exactly 1 + n_warmup + n_samples batched model runs.
+Warmup transitions adapt the scales; sampling transitions leave them
+frozen. The JAX driver's ``mesh=`` waits for the parallel slice.
 """
 
 from __future__ import annotations
@@ -35,8 +43,10 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from .. import settings
 from ..core.distributions import Support
-from ..runtime.staging import StagedModel
+from ..core.rng import site_seed
+from ..runtime.staging import StagedModel, stage
 from .mcmc_utils import AdaptationState, adapt_update
 
 TARGET_ACCEPT = 0.44  # classic single-site target (Roberts-Rosenthal)
@@ -51,6 +61,24 @@ class MHState:
     latents: Dict[str, Any]
     log_joint: Any
     adapt: AdaptationState
+
+
+def init_mh_state(staged: StagedModel, seed: int, n_chains: int, initial_scale=0.5) -> MHState:
+    """``n_chains`` prior draws with their log joints, from ONE batched
+    model run, and per-chain adaptation state (n_chains, n_sites).
+    ``initial_scale``: a float, or an ``{address: scale}`` dict of per-site
+    scales (unlisted sites use 0.5)."""
+    latents, log_joint = staged.sample_prior_batch_scored(seed, n_chains)
+    dt, dev = settings.real_dtype(), staged.device
+    if isinstance(initial_scale, dict):
+        scales = torch.tensor([float(initial_scale.get(s.address, 0.5)) for s in staged.sites],
+                              dtype=dt, device=dev)
+        log_scale = torch.log(scales).expand(n_chains, -1).clone()
+        adapt = AdaptationState(log_scale=log_scale, t=torch.zeros_like(log_scale))
+    else:
+        adapt = AdaptationState.init(len(staged.sites), initial_scale, (n_chains,), dtype=dt,
+                                     device=dev)
+    return MHState(latents=latents, log_joint=log_joint, adapt=adapt)
 
 
 def _reflect_into(y, lo, hi):
@@ -267,3 +295,60 @@ def mh_step(
     disc = draw_discrete_noise(staged, state.adapt.scale(), generator, b)
     return mh_step_from_noise(staged, state, site_idx, eps, log_u, adapt, target_accept,
                               log_density_fn, disc)
+
+
+@dataclass
+class MHResult:
+    """Posterior samples and trajectory metadata."""
+
+    samples: Dict[str, Any]  # addr -> (n_chains, n_samples, *site_shape)
+    log_joint: Any  # (n_chains, n_samples)
+    accept_rate: Any  # (n_chains,)
+    final_state: MHState
+
+
+def adaptive_mcmc_chain(
+    seed: int,
+    model_fn: Optional[Callable] = None,
+    n_samples: int = 1000,
+    n_warmup: int = 0,
+    *,
+    n_chains: int = 1,
+    model_args: tuple = (),
+    initial_scale=0.5,
+    target_accept: float = TARGET_ACCEPT,
+    staged: Optional[StagedModel] = None,
+    device="cuda",
+) -> MHResult:
+    """Adaptive single-site random-scan MH over ``n_chains`` chains at once.
+
+    Warmup transitions adapt each chain's per-site proposal scales; the
+    sampling transitions leave them frozen. A run makes exactly
+    1 + n_warmup + n_samples batched model runs: the scored prior draw,
+    then one replay per transition. ``seed`` seeds the prior draw and one
+    ``torch.Generator`` on the staged model's device, which draws every
+    proposal and accept uniform. ``device`` is used only when ``staged`` is
+    not given."""
+    if staged is None:
+        staged = stage(model_fn, *model_args, device=device)
+    generator = torch.Generator(device=staged.device).manual_seed(int(seed))
+    state = init_mh_state(staged, site_seed(seed, "mh/init"), n_chains, initial_scale)
+    for _ in range(n_warmup):
+        state, _ = mh_step(staged, state, generator, True, target_accept)
+    samples = {a: torch.empty((n_samples,) + tuple(v.shape), dtype=v.dtype, device=v.device)
+               for a, v in state.latents.items()}
+    log_joint = torch.empty((n_samples, n_chains), dtype=state.log_joint.dtype,
+                            device=staged.device)
+    accepted = torch.zeros((n_chains,), dtype=state.log_joint.dtype, device=staged.device)
+    for i in range(n_samples):
+        state, acc = mh_step(staged, state, generator, False, target_accept)
+        for a, v in state.latents.items():
+            samples[a][i] = v
+        log_joint[i] = state.log_joint
+        accepted += acc
+    return MHResult(
+        samples={a: v.movedim(0, 1) for a, v in samples.items()},
+        log_joint=log_joint.movedim(0, 1),
+        accept_rate=accepted / n_samples,
+        final_state=state,
+    )

@@ -8,6 +8,14 @@ so a state warmed up there continues here once it is converted with
 ``np.asarray`` and ``hmc_state_from_numpy``: ``hmc_chain(resume=state)`` or
 ``nuts_chain(resume=state)`` samples on with its step size and mass.
 
+A JAX ``ChEESResult`` adds the learned ``trajectory_length``:
+``chees_state_from_numpy`` makes the state ``chees_chain(resume=...)``
+reads (the JAX result itself also works there, its arrays converted with
+``np.asarray``). A JAX ``MHState`` batch (latents with a leading chain
+dimension, log joints, per-chain adaptation arrays) becomes this package's
+``MHState`` through ``mh_state_from_numpy``, so the port's ``mh_step``
+moves the same chains.
+
 Likewise the JAX ``SMCResult.state`` of a ladder stopped at
 ``max_stages`` (particles, log-weights, log-likelihoods, β, log Z, the
 adaptation arrays, the stage counter) becomes this package's ``SMCState``
@@ -25,6 +33,7 @@ import numpy as np
 import torch
 
 from .inference.mcmc_utils import AdaptationState
+from .inference.mh import MHState
 from .inference.smc import SMCState
 
 
@@ -61,6 +70,48 @@ def hmc_state_from_numpy(positions, step_size, inv_mass, *, device="cuda",
     eps = tensor_from_numpy(np.asarray(step_size, dtype=np.float64).reshape(()),
                             device=device, dtype=dtype)
     return HMCState(positions=q, step_size=eps, inv_mass=im)
+
+
+@dataclass
+class ChEESState(HMCState):
+    trajectory_length: torch.Tensor  # 0-dim: the learned T
+
+
+def chees_state_from_numpy(positions, step_size, trajectory_length, inv_mass, *,
+                           device="cuda", dtype=torch.float32) -> ChEESState:
+    """A warmed ChEES state from numpy arrays: ``hmc_state_from_numpy``'s
+    checks, a diagonal (d,) mass and a scalar trajectory length."""
+    st = hmc_state_from_numpy(positions, step_size, inv_mass, device=device, dtype=dtype)
+    if st.inv_mass.dim() != 1:
+        raise ValueError(f"a ChEES mass is diagonal (d,), got {tuple(st.inv_mass.shape)}")
+    T = tensor_from_numpy(np.asarray(trajectory_length, dtype=np.float64).reshape(()),
+                          device=device, dtype=dtype)
+    return ChEESState(positions=st.positions, step_size=st.step_size, inv_mass=st.inv_mass,
+                      trajectory_length=T)
+
+
+def mh_state_from_numpy(latents: Dict[str, np.ndarray], log_joint, adapt_log_scale, adapt_t,
+                        *, device="cuda", dtype=torch.float32) -> MHState:
+    """A batch of MH chains from numpy arrays: latents (C, *site_shape) per
+    address (real values in ``dtype``, bool and integer values as they
+    are), log joints (C,), and the (C, n_sites) or shared (n_sites,)
+    adaptation arrays."""
+    lj = tensor_from_numpy(log_joint, device=device, dtype=dtype)
+    c = lj.shape[0] if lj.dim() == 1 else -1
+    lat = {}
+    for a, v in latents.items():
+        v = np.asarray(v)
+        lat[str(a)] = tensor_from_numpy(v, device=device,
+                                        dtype=dtype if v.dtype.kind == "f" else None)
+    if c < 0 or any(v.dim() < 1 or v.shape[0] != c for v in lat.values()):
+        raise ValueError(
+            f"log_joint {tuple(lj.shape)} and every latent must share one leading chain dimension")
+    ls = tensor_from_numpy(adapt_log_scale, device=device, dtype=dtype)
+    t = tensor_from_numpy(adapt_t, device=device, dtype=dtype)
+    if t.shape != ls.shape or ls.dim() not in (1, 2) or (ls.dim() == 2 and ls.shape[0] != c):
+        raise ValueError(f"adaptation arrays {tuple(ls.shape)}, {tuple(t.shape)} must be "
+                         f"(n_sites,) or (C={c}, n_sites)")
+    return MHState(latents=lat, log_joint=lj, adapt=AdaptationState(log_scale=ls, t=t))
 
 
 def smc_state_from_numpy(particles: Dict[str, np.ndarray], log_weights, log_likelihoods,

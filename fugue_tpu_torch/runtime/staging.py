@@ -12,7 +12,9 @@ flat unconstrained position ``z``:
   model runs once per batch, never once per chain;
 - ``log_density_parts`` keeps the reference's three-accumulator split;
 - ``sample_prior_batch(seed, n)`` draws n particles in ONE model run under
-  ``vmap(..., randomness="different")``, for SMC's stage 0;
+  ``vmap(..., randomness="different")``, for SMC's stage 0, and
+  ``sample_prior_batch_scored`` scores them in the same run, for MH's
+  initial state;
 - ``flatten_constrained`` / ``unflatten_constrained`` map latents to the flat
   CONSTRAINED layout that single-site MH proposes in, with any leading
   batch dimensions.
@@ -150,8 +152,18 @@ class StagedModel:
         a leading (n,) dimension. Every site's generator draws its n values
         at once (``vmap`` with ``randomness="different"``), so the batch is
         a function of ``seed`` and ``n`` alone."""
+        return self.sample_prior_batch_scored(seed, n)[0]
+
+    def sample_prior_batch_scored(self, seed: int, n: int):
+        """``sample_prior_batch`` with each draw's log joint (n,), scored in
+        the same model run (the prior run scores every site):
+        (latents, log_joint)."""
+        dt = settings.real_dtype()
+
         def one(_):
-            return self.sample_prior(seed)
+            _, trace = self._run(PriorHandler(seed, self.device))
+            total = torch.as_tensor(trace.total_log_weight(), dtype=dt, device=self.device)
+            return trace.latents(), total
 
         return vmap(one, randomness="different")(torch.zeros(n, device=self.device))
 

@@ -1,4 +1,4 @@
-"""The PyTorch port's HMC, NUTS and SMC paths on a CUDA device.
+"""The PyTorch port's HMC, NUTS, SMC, ChEES and MH paths on a CUDA device.
 
 Every test here is marked ``gpu`` and skips without a card. The file imports
 no JAX, so it runs on a machine with a card and no JAX, past the suite's
@@ -16,7 +16,9 @@ plain versions on the card:
 logsumexp to 1e-12 relative in float64 and within the plain float32
 version's error of float64 in float32; systematic resampling in float64 to
 a deviation of at most 1 on fewer than 0.1% of slots, sorted, in range and
-the same run to run.
+the same run to run. A ChEES run and an adaptive MH run on the card equal
+the same runs on the CPU from the same draws, and one ChEES transition
+makes exactly one host sync (its τ read).
 """
 
 import math
@@ -27,10 +29,11 @@ import torch
 from torch.func import grad_and_value, vmap
 
 import fugue_tpu_torch as ftt
-from chip_smoke import (capture, conjugate_evidence_model, eight_schools_model,
-                        mixed_discrete_exact, mixed_discrete_model, plate_model)
+from chip_smoke import (_host_syncs, capture, conjugate_evidence_model, eight_schools_model,
+                        hierarchical_model, mixed_discrete_exact, mixed_discrete_model,
+                        plate_model)
 from fugue_tpu_torch import settings
-from fugue_tpu_torch.inference import hmc, mh, nuts
+from fugue_tpu_torch.inference import chees, hmc, mh, nuts
 from fugue_tpu_torch.inference import mcmc_utils as mu_
 from fugue_tpu_torch.ops import kernels as K
 
@@ -470,3 +473,63 @@ def test_smc_on_the_mixed_discrete_model_on_cuda_equals_cpu(monkeypatch):
     assert same.double().mean().item() > 0.99
     assert abs(g.posterior_mean("heads").item() - c.posterior_mean("heads").item()) < 2e-3
     assert abs(g.log_evidence - c.log_evidence) < 1e-3
+
+
+def test_chees_chain_on_cuda_equals_cpu(monkeypatch):
+    """chees_chain on eight-schools, the same draws on both devices: the
+    same leapfrog counts, step size, T and positions (float64, where the
+    devices differ in summation order only; 1e-9)."""
+    kw = dict(n_samples=20, n_warmup=20, n_chains=64, config=ftt.ChEESConfig(target_accept=0.8))
+    cpu = ftt.chees_chain(3, staged=_eight_schools("cpu"), **kw)
+    _cpu_draws(monkeypatch)
+    gpu = ftt.chees_chain(3, staged=_eight_schools("cuda"), **kw)
+    assert gpu.positions.is_cuda and gpu.final_positions.is_cuda
+    assert gpu.n_leapfrogs == cpu.n_leapfrogs and gpu.host_syncs == cpu.host_syncs == 40
+    assert gpu.step_size == pytest.approx(cpu.step_size, rel=1e-9)
+    assert gpu.trajectory_length == pytest.approx(cpu.trajectory_length, rel=1e-9)
+    np.testing.assert_allclose(gpu.positions.cpu().numpy(), cpu.positions.numpy(),
+                               rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(gpu.inv_mass.cpu().numpy(), cpu.inv_mass.numpy(), rtol=1e-9)
+
+
+def test_adaptive_mcmc_chain_on_cuda_equals_cpu(monkeypatch):
+    """adaptive_mcmc_chain on the 20-site model, the same draws on both
+    devices: the same samples, log joints and scales (float64, 1e-10), and
+    1 + n_warmup + n_samples batched model runs on the card."""
+    runs = [0]
+    base = hierarchical_model("cuda", torch.float64)
+
+    def counted():
+        runs[0] += 1
+        return base()
+
+    kw = dict(n_samples=15, n_warmup=15, n_chains=512)
+    cpu = ftt.adaptive_mcmc_chain(4, staged=ftt.stage(hierarchical_model("cpu", torch.float64),
+                                                      device="cpu"), **kw)
+    _cpu_draws(monkeypatch)
+    staged = ftt.stage(counted, device="cuda")
+    runs[0] = 0
+    gpu = ftt.adaptive_mcmc_chain(4, staged=staged, **kw)
+    assert runs[0] == 1 + 15 + 15
+    for a in cpu.samples:
+        np.testing.assert_allclose(gpu.samples[a].cpu().numpy(), cpu.samples[a].numpy(), **TOL)
+    np.testing.assert_allclose(gpu.log_joint.cpu().numpy(), cpu.log_joint.numpy(), **TOL)
+    np.testing.assert_allclose(gpu.final_state.adapt.log_scale.cpu().numpy(),
+                               cpu.final_state.adapt.log_scale.numpy(), **TOL)
+    assert torch.equal(gpu.accept_rate.cpu(), cpu.accept_rate)
+
+
+def test_one_chees_transition_makes_one_host_sync():
+    """chees_transition reads tau back once; the rest (L + 1 batched
+    value-and-grads on the plate kernel, the accept test) stays on the card."""
+    staged = _plate("cuda")
+    q = torch.as_tensor(_inputs(staged.dim)[0], device="cuda")
+    z = torch.randn(q.shape, dtype=torch.float64, device="cuda")
+    log_u = torch.full((32,), -0.5, dtype=torch.float64, device="cuda")
+    eps, T = (torch.tensor(x, dtype=torch.float64, device="cuda") for x in (0.002, 0.007))
+    im = torch.ones(staged.dim, dtype=torch.float64, device="cuda")
+    before = dict(K.LAUNCHES)
+    out = chees.chees_transition(staged.potential, q, z, log_u, eps, T, 0.75, im, 1024)
+    assert out[6] == 3 and K.LAUNCHES["nll"] - before["nll"] == 4
+    assert _host_syncs(lambda: chees.chees_transition(staged.potential, q, z, log_u, eps, T,
+                                                      0.75, im, 1024)) == 1

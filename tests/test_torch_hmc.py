@@ -204,20 +204,20 @@ def _moments(mu, ess):
 
 
 def test_short_chain_matches_jax_moments(pair):
-    """64 chains, L=8, 150 warmup + 150 samples in each package: the
+    """64 chains, L=8, 100 warmup + 100 samples in each package: the
     posterior mean and sd of mu agree within 4 combined MC standard errors,
     and the port's split-R-hat is below 1.05."""
     js, ts = pair
     cfg_kw = dict(n_leapfrog=8, target_accept=0.9)
-    jr = jhmc.hmc_chain(jax.random.PRNGKey(0), n_samples=150, n_warmup=150, n_chains=64,
+    jr = jhmc.hmc_chain(jax.random.PRNGKey(0), n_samples=100, n_warmup=100, n_chains=64,
                         config=jhmc.HMCConfig(**cfg_kw), staged=js)
-    tr = ftt.hmc_chain(0, n_samples=150, n_warmup=150, n_chains=64,
+    tr = ftt.hmc_chain(0, n_samples=100, n_warmup=100, n_chains=64,
                        config=ftt.HMCConfig(**cfg_kw), staged=ts)
     jmu, tmu = np.asarray(jr.samples["mu"]), tr.samples["mu"]
-    assert tmu.shape == (64, 150) and tr.positions.shape == (64, 150, ts.dim)
-    assert tr.samples["theta_raw"].shape == (64, 150, 8)
-    assert tr.log_joint.shape == (64, 150) and tr.divergences.shape == (64, 150)
-    assert tr.accept_prob.shape == (150,) and isinstance(tr.step_size, float)
+    assert tmu.shape == (64, 100) and tr.positions.shape == (64, 100, ts.dim)
+    assert tr.samples["theta_raw"].shape == (64, 100, 8)
+    assert tr.log_joint.shape == (64, 100) and tr.divergences.shape == (64, 100)
+    assert tr.accept_prob.shape == (100,) and isinstance(tr.step_size, float)
     assert split_r_hat(tmu).item() < 1.05
     jm, jsd, jse_m, jse_sd = _moments(jmu, float(np.asarray(jax_ess(jmu))))
     tm, tsd, tse_m, tse_sd = _moments(tmu.numpy(), ess_multichain(tmu).item())

@@ -239,7 +239,7 @@ def _corr_model():
 
 def test_dense_mass_hmc_chain():
     """Dense-mass HMC on the rho = 0.9 Gaussian learns the covariance."""
-    res = ftt.hmc_chain(0, _corr_model(), n_samples=300, n_warmup=300, n_chains=16, device="cpu",
+    res = ftt.hmc_chain(0, _corr_model(), n_samples=200, n_warmup=200, n_chains=16, device="cpu",
                         config=ftt.HMCConfig(mass="dense", n_leapfrog=8))
     im = res.inv_mass.numpy()
     assert im.shape == (2, 2)
@@ -256,11 +256,11 @@ def test_hmc_chain_resume():
     staged = ftt.stage(_corr_model(), device="cpu")
     cfg = ftt.HMCConfig(mass="dense", n_leapfrog=8)
     first = ftt.hmc_chain(0, staged=staged, n_samples=50, n_warmup=200, n_chains=8, config=cfg)
-    second = ftt.hmc_chain(1, staged=staged, n_samples=300, n_warmup=500, n_chains=8, config=cfg,
+    second = ftt.hmc_chain(1, staged=staged, n_samples=200, n_warmup=500, n_chains=8, config=cfg,
                            resume=first)
     assert second.step_size == first.step_size
     assert torch.equal(second.inv_mass, first.inv_mass)
-    assert second.samples["x"].shape == (8, 300)  # n_warmup is ignored: no warmup
+    assert second.samples["x"].shape == (8, 200)  # n_warmup is ignored: no warmup
     xs = second.samples["x"]
     assert abs(xs.mean().item()) < 0.15 and xs.std().item() == pytest.approx(1.0, rel=0.15)
     with pytest.raises(ValueError, match="not both"):

@@ -342,7 +342,7 @@ def test_dense_mass_nuts():
         x = ftt.sample("x", ftt.Normal(0.0, 1.0))
         ftt.sample("y", ftt.Normal(RHO * x, math.sqrt(1 - RHO**2)))
 
-    res = ftt.nuts_chain(7, model, n_samples=400, n_warmup=400, n_chains=8, device="cpu",
+    res = ftt.nuts_chain(7, model, n_samples=250, n_warmup=250, n_chains=8, device="cpu",
                          config=ftt.NUTSConfig(mass="dense"))
     im = res.inv_mass.numpy()
     assert im.shape == (2, 2)

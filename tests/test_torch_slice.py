@@ -34,11 +34,14 @@ FLAT_API = ("sample", "observe", "factor", "guard", "Normal", "LogNormal", "stag
             "NUTSConfig", "NUTSResult", "NutsSession", "nuts_chain", "nuts_transition",
             "print_diagnostics", "summarize_samples", "ParameterSummary",
             "ess", "ess_multichain", "geweke", "r_hat", "rank_normalized_split_r_hat",
-            "split_r_hat", "SMCConfig", "SMCResult", "adaptive_smc", "importance_reweight")
+            "split_r_hat", "SMCConfig", "SMCResult", "adaptive_smc", "importance_reweight",
+            "ChEESConfig", "ChEESResult", "CheesSession", "chees_chain", "MHResult",
+            "adaptive_mcmc_chain")
 ENTRY_POINTS = (ftt.stage, ftt.StagedModel, ftt.hmc_chain, ftt.HmcSession, ftt.nuts_chain,
-                ftt.NutsSession, ftt.adaptive_smc, ftt.importance_reweight,
-                interop.tensor_from_numpy, interop.hmc_state_from_numpy,
-                interop.smc_state_from_numpy)
+                ftt.NutsSession, ftt.adaptive_smc, ftt.importance_reweight, ftt.chees_chain,
+                ftt.CheesSession, ftt.adaptive_mcmc_chain, interop.tensor_from_numpy,
+                interop.hmc_state_from_numpy, interop.chees_state_from_numpy,
+                interop.mh_state_from_numpy, interop.smc_state_from_numpy)
 
 
 @pytest.fixture(autouse=True)
