@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's HMC, SMC, NUTS, ChEES and MH main paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's HMC, SMC, NUTS, ChEES, MH, VI and ABC main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py                      # all phases
     python3 chip_smoke.py --phases build,kernel
@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases build,nuts_eight_schools,nuts_plate
     python3 chip_smoke.py --phases build,smc_coin,smc_mixture,smc_discrete
     python3 chip_smoke.py --phases build,chees_eight_schools,chees_plate,mh_coin,mh_hierarchical
+    python3 chip_smoke.py --phases build,vi_hierarchical,vi_plate,vi_scale,abc_rejection,abc_smc
 
 Phases (each prints JSON lines; any failure raises and exits non-zero):
 
@@ -32,7 +33,7 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  one kernel call per batched model run.
 5. smc_kernels   the logsumexp and systematic-resampling kernels against
                  their plain versions and float64 references, at SMC's
-                 131,072 particles, 2^24 / 2^20 and ragged sizes, from
+                 131,072 particles, 2^24 / 2^20, 2,048 and ragged sizes, from
                  unaligned x[1:] views, with logits near +-1e4, one
                  outlier, -inf, +inf and NaN inputs and degenerate
                  weights, in both dtypes; each bitwise the same run to run
@@ -98,6 +99,41 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  count, finite log joints and per-chain acceptance rates in
                  (0, 1) (not the posterior: 100 transitions from the prior
                  have not mixed).
+16. vi_hierarchical  ftt.optimize_meanfield_vi at bench_vi's shape: the
+                 20-site model, Adam, 2,000 iterations of 128 MC samples, one
+                 chunk, float32; gates on the final ELBO (mean of the last
+                 200) and q(mu)'s loc within 5 run-SDs of the JAX package's
+                 (VI_HIERARCHICAL), then ftt.predictive of 4,096 guide draws
+                 in exactly one batched model run, each of the 85 y means
+                 within 5 MC-SE of its theta's. Reports iterations/s, ms and
+                 kernels per iteration and host syncs per run (one: the
+                 history).
+17. vi_plate     mean-field VI on the 2^20-row plate (numpy data), 64 MC
+                 samples at lr 0.05, 10 segments of 100 iterations chained
+                 through resume= (a single run's Adam steps shrink with the
+                 guide scales' gradients and stall far from the posterior):
+                 one plate-kernel call per iteration at (64, 2^20), counted
+                 against the loss evaluations, one host sync per segment;
+                 q(mu)'s loc - ybar, q(sigma)'s median - s and both guide
+                 scales, in posterior sds, within 5 run-SDs of the JAX
+                 package's in float32 (VI_PLATE).
+18. vi_scale     bench_vi_scale at full width (d = 512, N = 16,384, an
+                 MVN(0, Sigma_ij = exp(-|i-j|/16)) prior): mean-field 3,000 x 8
+                 at lr 0.02, full-rank 6 x 3,000 x 16 through resume= on the
+                 lr ladder; the max standardized loc errors and the full-rank
+                 sd-ratio range no worse than the JAX package's by 5 run-SDs
+                 (VI_SCALE).
+19. abc_rejection  ftt.abc_rejection at bench_abc's shape: 64 observations,
+                 eps 0.02, 4,096 samples, batch 2^17 x 16 inner batches;
+                 the mean within 5 SE of the conjugate posterior mean and the
+                 sd ratio within 1 +- 0.06. Reports sims/s and host syncs.
+20. abc_smc      ftt.abc_smc_weighted and ftt.abc_smc at bench_abc's SMC
+                 shape (2,048 particles, eps 0.5/0.2/0.1/0.05, batch 16,384):
+                 the weighted and the equal-weight mean within 5 MC-SE (from
+                 the weights' ESS) of the conjugate mean; 4 logsumexp
+                 launches per run and abc_smc's one systematic_resample;
+                 both kernels against their plain versions on the run's own
+                 2,048 log-weights (smc_kernels' tolerances).
 
 Then it prints the card's name and power limit, one JSON line describing
 the kernels, and as the last line
@@ -123,7 +159,8 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernel", "eight_schools", "gaussian_plate", "smc_kernels", "smc",
           "nuts_eight_schools", "nuts_plate", "smc_coin", "smc_mixture", "smc_discrete",
-          "chees_eight_schools", "chees_plate", "mh_coin", "mh_hierarchical")
+          "chees_eight_schools", "chees_plate", "mh_coin", "mh_hierarchical",
+          "vi_hierarchical", "vi_plate", "vi_scale", "abc_rejection", "abc_smc")
 SOURCES = ("normal_loglik_sum", "logsumexp", "systematic_resample")
 REPLACES = {
     # _nll_fwd_kernel and _nll_bwd_kernel, one value-and-grad kernel here
@@ -163,6 +200,34 @@ SMC_MIXTURE = {
     "mu1": {"MEAN": 2.0873063883955867, "RUN_SD": 0.0003461514304083394},
     "w": {"MEAN": 0.403848374278331, "RUN_SD": 0.00021113446700997957},
     "log_evidence": {"MEAN": -145.91377433878702, "RUN_SD": 0.017770533246677385},
+}
+
+# The JAX package's VI at the VI phases' configurations, on the CPU in
+# float32 (the card's dtype), seeds PRNGKey(0..runs-1), on the same numpy
+# data: for each quantity the mean over runs and the run-to-run standard
+# deviation (one run's Monte-Carlo error). Made by
+#   python scripts/vi_abc_reference.py --phase vi_hierarchical --runs 16 --x32
+#   python scripts/vi_abc_reference.py --phase vi_plate --runs 32 --x32
+#   python scripts/vi_abc_reference.py --phase vi_scale --runs 4 --x32
+VI_REF_RUNS = {"hierarchical": 16, "plate": 32, "scale": 4}
+VI_HIERARCHICAL = {  # final ELBO: the mean of the last 200 iterations
+    "final_elbo": {"MEAN": -125.13169956207275, "RUN_SD": 0.19431057050125558},
+    "mu_loc": {"MEAN": 0.571377731859684, "RUN_SD": 0.0063165766221502115},
+}
+VI_PLATE_SEGMENTS, VI_PLATE_ITERATIONS = 10, 100  # the plate's VI, chained through resume=
+VI_PLATE = {  # vi_plate_stats after the 10 x 100 iterations
+    "mu_loc_z": {"MEAN": 0.01169378898233707, "RUN_SD": 0.13296648534538838},
+    "sigma_median_z": {"MEAN": -0.1833272354415104, "RUN_SD": 0.10368903609565289},
+    "mu_scale_ratio": {"MEAN": 0.9996068441192489, "RUN_SD": 0.012303401313489871},
+    "log_sigma_scale_ratio": {"MEAN": 1.0069102694484235, "RUN_SD": 0.06136693671571514},
+}
+VI_SCALE_LADDER = (0.02, 0.01, 0.005, 0.0025, 0.00125, 0.00125)  # full-rank lr per segment
+VI_SCALE_SEGMENT = 1500  # full-rank iterations per segment (bench_vi_scale: 3,000)
+VI_SCALE = {  # max |loc - post mean| / post sd, and the full-rank sd ratio's range
+    "mf_err": {"MEAN": 0.22059992770428538, "RUN_SD": 0.021316448470296644},
+    "fr_err": {"MEAN": 0.05069009093805741, "RUN_SD": 0.0031038735898052997},
+    "fr_sd_ratio_min": {"MEAN": 0.9880055753022343, "RUN_SD": 0.003564216158760753},
+    "fr_sd_ratio_max": {"MEAN": 1.0729604325317248, "RUN_SD": 0.002313733846307404},
 }
 
 # Posterior mean of mu in eight-schools (bench.eight_schools_model), from the
@@ -634,6 +699,48 @@ def hierarchical_model(device, dtype=torch.float32):
     return hierarchical
 
 
+def plate_numpy_data(n):
+    """n rows from N(1.5, 2^2), made with numpy: the VI plate phase's data,
+    which scripts/vi_abc_reference.py hands the JAX package too."""
+    return np.random.default_rng(2).normal(1.5, 2.0, n)
+
+
+VI_SCALE_D, VI_SCALE_N = 512, 16384  # bench_vi_scale's width and rows
+
+
+def vi_scale_data(d=VI_SCALE_D, n=VI_SCALE_N):
+    """bench_vi_scale's regression, made with numpy in float64: X (n, d)
+    with N(0, 1/d) entries, a prior w ~ N(0, Sigma) with Sigma_ij =
+    exp(-|i - j| / 16) given by its Cholesky factor L, y = X w_true + N(0, 1)
+    noise, and the exact Gaussian posterior's mean and marginal sds:
+    (X, y, L, post_mean, post_sd)."""
+    rng = np.random.default_rng(96)
+    ii = np.arange(d)
+    sigma = np.exp(-np.abs(ii[:, None] - ii[None, :]) / 16.0)
+    L = np.linalg.cholesky(sigma)
+    X = rng.standard_normal((n, d)) / np.sqrt(d)
+    w_true = L @ rng.standard_normal(d)
+    y = X @ w_true + rng.standard_normal(n)
+    cov = np.linalg.inv(np.linalg.inv(sigma) + X.T @ X)
+    return X, y, L, cov @ (X.T @ y), np.sqrt(np.diag(cov))
+
+
+ABC_N_OBS = 64  # bench_abc's simulator: 64 observations
+
+
+def abc_data():
+    """bench_abc's observed data, made with numpy: 64 draws of N(1, 1)."""
+    return 1.0 + np.random.default_rng(77).standard_normal(ABC_N_OBS)
+
+
+def abc_posterior(obs):
+    """(mean, sd) of mu_p's exact posterior under mu_p ~ N(0, 2^2) and
+    N(mu_p, 1) observations: the rejection and SMC gates' target (an ABC
+    posterior on the mean statistic at small epsilon)."""
+    n = obs.size
+    return n * float(obs.mean()) / (0.25 + n), math.sqrt(1.0 / (0.25 + n))
+
+
 def conjugate_data():
     return np.random.default_rng(7).normal(0.3, 1.0, 32)
 
@@ -785,6 +892,52 @@ def _check_indices(idx, n, what):
     check(int(idx[0]) >= 0 and int(idx[-1]) < n, f"{what}: indices out of range")
 
 
+def _lse_f32_check(x, what):
+    """The logsumexp kernel on float32 ``x`` against the plain version and
+    float64: |kernel - f64| <= max(|plain - f64|, eps32 * |f64|), infinite
+    results exactly; the same result twice. The numbers, for a row."""
+    from fugue_tpu_torch.ops import kernels as K
+
+    k, p, r = K.plogsumexp(x), K.logsumexp_ref(x), K.logsumexp_ref(x.double())
+    check(k.dtype == torch.float32 and k.dim() == 0, f"{what}: output {k.dtype} {k.shape}")
+    check(torch.equal(K.plogsumexp(x), k), f"{what}: not deterministic")
+    row = {"kernel_value": k.item(), "plain_value": p.item(), "f64_value": r.item()}
+    if not math.isfinite(r.item()):
+        check(k.item() == r.item() == p.item(), f"{what}: {k} {p} {r}")
+        return dict(row, kernel_vs_plain=0.0)
+    ke, pe = abs(k.double().item() - r.item()), abs(p.double().item() - r.item())
+    tol = max(pe, torch.finfo(torch.float32).eps * abs(r.item()))
+    check(ke <= tol, f"{what}: |kernel - f64| {ke} > {tol}")
+    return dict(row, kernel_vs_f64=ke, plain_vs_f64=pe, tolerance=tol,
+                kernel_vs_plain=abs(k.item() - p.item()))
+
+
+def _resample_f32_contract(lw32, logits64, u0v, what):
+    """The resample kernel on float32 log-weights against the exact float64
+    reference on ``logits64`` with the same u0, under the JAX package's
+    contract (tests/test_pallas_kernels.py): max ancestor deviation <=
+    max(4, 2 x the plain float32 version's), fewer than 2% of slots differ;
+    indices sorted, in range, the same twice. The numbers, for a row."""
+    from fugue_tpu_torch.ops import kernels as K
+
+    n = lw32.numel()
+    u0 = torch.tensor(u0v, dtype=torch.float32, device="cuda")
+    got = K.systematic_resample_from_u0(lw32, u0)
+    _check_indices(got, n, what)
+    check(torch.equal(got, K.systematic_resample_from_u0(lw32, u0)), f"{what}: not deterministic")
+    ref = torch.as_tensor(_exact_systematic(logits64, float(u0.item())), device="cuda")
+    plain = K.systematic_resample_ref(u0, torch.exp(lw32 - K.logsumexp_ref(lw32)))
+    floor = (plain - ref).abs().max().item()
+    dev = (got - ref).abs()
+    row = {"u0": u0v, "max_dev_vs_f64": dev.max().item(), "plain_max_dev_vs_f64": floor,
+           "frac_differ": (dev > 0).float().mean().item(),
+           "kernel_vs_plain": (got - plain).abs().max().item(),
+           "tolerance": "max dev <= max(4, 2 * plain's), < 2% differ"}
+    check(row["max_dev_vs_f64"] <= max(4, 2 * floor) and row["frac_differ"] < 0.02,
+          f"{what}: contract {row}")
+    return row
+
+
 def phase_smc_kernels():
     """logsumexp and systematic resampling against their plain versions.
 
@@ -802,24 +955,11 @@ def phase_smc_kernels():
     """
     from fugue_tpu_torch.ops import kernels as K
 
-    eps32 = torch.finfo(torch.float32).eps
     rows = {}
-    for n in (N_PARTICLES, 1 << 24, 3 * 8192 + 17):
+    for n in (N_PARTICLES, 1 << 24, 3 * 8192 + 17, 2048):
         for kind, x in _lse_inputs(n, seed=n % 1000).items():
-            k, p, r = K.plogsumexp(x), K.logsumexp_ref(x), K.logsumexp_ref(x.double())
-            check(k.dtype == torch.float32 and k.dim() == 0, f"lse output {k.dtype} {k.shape}")
-            check(torch.equal(K.plogsumexp(x), k), f"lse not deterministic at {n} {kind}")
             row = {"phase": "smc_kernels", "kernel": "logsumexp", "n": n, "input": kind,
-                   "kernel_value": k.item(), "plain_value": p.item(), "f64_value": r.item()}
-            if math.isfinite(r.item()):
-                ke, pe = abs(k.double().item() - r.item()), abs(p.double().item() - r.item())
-                tol = max(pe, eps32 * abs(r.item()))
-                row.update(kernel_vs_f64=ke, plain_vs_f64=pe, tolerance=tol,
-                           kernel_vs_plain=abs(k.item() - p.item()))
-                check(ke <= tol, f"lse at {n} {kind}: |kernel - f64| {ke} > {tol}")
-            else:
-                check(k.item() == r.item() == p.item(), f"lse at {n} {kind}: {k} {p} {r}")
-                row["kernel_vs_plain"] = 0.0
+                   **_lse_f32_check(x, f"lse at {n} {kind}")}
             if kind == "normal_x10":
                 _same_from_graph(lambda: K.plogsumexp(x), f"lse at {n}")
             if kind == "normal_x10" and n in (N_PARTICLES, 1 << 24):
@@ -858,32 +998,12 @@ def phase_smc_kernels():
     logits = np.random.default_rng(7).normal(size=n) * 4.0
     lw32 = torch.as_tensor(logits, dtype=torch.float32, device="cuda")
     for u0v in (torch.rand((), generator=g, device="cuda").item(), 0.0, 1.0 - 2.0**-24):
-        u0 = torch.tensor(u0v, dtype=torch.float32, device="cuda")
-        got = K.systematic_resample_from_u0(lw32, u0)
-        _check_indices(got, n, f"resample f32 u0={u0v}")
-        check(torch.equal(got, K.systematic_resample_from_u0(lw32, u0)),
-              f"resample not deterministic, u0={u0v}")
-        ref = torch.as_tensor(_exact_systematic(logits, float(u0.item())), device="cuda")
-        plain = K.systematic_resample_ref(u0, torch.exp(lw32 - K.logsumexp_ref(lw32)))
-        floor = (plain - ref).abs().max().item()
-        dev = (got - ref).abs()
-        row = {"phase": "smc_kernels", "kernel": "systematic_resample", "n": n, "dtype": "float32",
-               "u0": u0v, "max_dev_vs_f64": dev.max().item(), "plain_max_dev_vs_f64": floor,
-               "frac_differ": (dev > 0).float().mean().item(),
-               "kernel_vs_plain": (got - plain).abs().max().item(),
-               "tolerance": "max dev <= max(4, 2 * plain's), < 2% differ"}
-        check(row["max_dev_vs_f64"] <= max(4, 2 * floor) and row["frac_differ"] < 0.02,
-              f"resample f32 contract: {row}")
-        emit(row)
-    # the same contract from an unaligned view, lw32[1:]
+        emit({"phase": "smc_kernels", "kernel": "systematic_resample", "n": n, "dtype": "float32",
+              **_resample_f32_contract(lw32, logits, u0v, f"resample f32 u0={u0v}")})
+    # the same contract from an unaligned view, lw32[1:], and at abc_smc's 2,048
+    _resample_f32_contract(lw32[1:], logits[1:], 0.37, "resample f32 from lw[1:]")
+    _resample_f32_contract(lw32[:2048], logits[:2048], 0.37, "resample f32 at 2,048")
     u0 = torch.tensor(0.37, device="cuda")
-    got = K.systematic_resample_from_u0(lw32[1:], u0)
-    _check_indices(got, n - 1, "resample f32 from lw[1:]")
-    ref = torch.as_tensor(_exact_systematic(logits[1:], float(u0.item())), device="cuda")
-    plain = K.systematic_resample_ref(u0, torch.exp(lw32[1:] - K.logsumexp_ref(lw32[1:])))
-    floor, dev = (plain - ref).abs().max().item(), (got - ref).abs()
-    check(dev.max().item() <= max(4, 2 * floor) and (dev > 0).float().mean().item() < 0.02,
-          f"resample f32 contract from lw[1:]: max dev {dev.max().item()}, plain {floor}")
     _same_from_graph(lambda: K.systematic_resample_from_u0(lw32, u0), "resample f32")
     # times at the weights a ladder stage resamples: ESS about N/2
     lw_main = torch.as_tensor(np.random.default_rng(8).normal(size=n) * 0.83,
@@ -1352,6 +1472,331 @@ def phase_mh_hierarchical():
           f"{row['accept_rate_max']}]")
 
 
+def traced_kernels(fn, cpu=False):
+    """One ``fn()`` call under torch.profiler, from a synchronised start to
+    a synchronised end: (the profiler, the CUDA kernel events). ``cpu``
+    traces the host side too."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return prof, [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def run_sd_z(x, ref, runs):
+    """x's offset from the JAX package's mean over ``runs`` runs, in run-SDs
+    (the SD of one run, widened by the constant's own standard error)."""
+    return (x - ref["MEAN"]) / math.hypot(ref["RUN_SD"], ref["RUN_SD"] / math.sqrt(runs))
+
+
+def _within(x, ref, runs, what, side=0):
+    """x within 5 run-SDs of the JAX package's mean (``run_sd_z``); ``side``
+    +1 bounds x from above only, -1 from below only. The offset."""
+    z = run_sd_z(x, ref, runs)
+    check(abs(z) < 5.0 if side == 0 else side * z < 5.0,
+          f"{what} {x} is {z:.2f} run-SDs from the JAX package's {ref['MEAN']}"
+          + ("" if side == 0 else f" (bounded {'above' if side > 0 else 'below'} only)"))
+    return z
+
+
+def _timed_syncs(fn):
+    """(fn's result, wall seconds, host syncs): one ``fn()`` call timed from
+    a synchronised start to a synchronised end, its device-to-host syncs
+    counted (``_host_syncs``)."""
+    out = {}
+
+    def run():
+        t0 = time.perf_counter()
+        out["res"] = fn()
+        torch.cuda.synchronize()
+        out["wall"] = time.perf_counter() - t0
+
+    syncs = _host_syncs(run)
+    return out["res"], out["wall"], syncs
+
+
+def phase_vi_hierarchical():
+    """bench_vi: mean-field VI on the 20-site model, then the predictive of
+    4,096 guide draws in one batched model run."""
+    import fugue_tpu_torch as ftt
+
+    n_iter, n_mc, n_pred = 2000, 128, 4096
+    model = hierarchical_model("cuda")
+    staged = ftt.stage(model, device="cuda")
+    cfg = ftt.VIConfig(n_iterations=n_iter, n_samples=n_mc, plateau_window=10**9,
+                       check_every=n_iter)
+    short = ftt.VIConfig(n_iterations=20, n_samples=n_mc, plateau_window=10**9, check_every=20)
+    ftt.optimize_meanfield_vi(0, staged=staged, config=short)  # first use of torch.func
+    _, ks = traced_kernels(lambda: ftt.optimize_meanfield_vi(1, staged=staged, config=short))
+    kernels, device_us = len(ks), sum(e.time_range.elapsed_us() for e in ks)
+    res, wall, syncs = _timed_syncs(
+        lambda: ftt.optimize_meanfield_vi(4, staged=staged, config=cfg))
+    hist = res.elbo_history
+    check(hist.shape == (n_iter,) and bool(np.isfinite(hist).all()), "vi_hierarchical: ELBO history")
+    final_elbo = float(np.mean(hist[-200:]))
+    mu_loc = res.params["mu"]["loc"].item()
+    row = {"phase": "vi_hierarchical", "card": card_line(), "iterations": n_iter,
+           "mc_samples": n_mc, "dtype": str(res.params["mu"]["loc"].dtype), "wall_s": wall,
+           "vi_elbo_grad_iterations_per_sec_20site_128mc": n_iter / wall,
+           "ms_per_iteration": 1e3 * wall / n_iter, "kernels_per_iteration": kernels / 20,
+           "device_us_per_iteration": device_us / 20, "host_syncs_per_run": syncs,
+           "final_elbo": final_elbo, "mu_loc": mu_loc,
+           "final_elbo_z": _within(final_elbo, VI_HIERARCHICAL["final_elbo"], VI_REF_RUNS["hierarchical"],
+                                   "vi_hierarchical final ELBO"),
+           "mu_loc_z": _within(mu_loc, VI_HIERARCHICAL["mu_loc"], VI_REF_RUNS["hierarchical"],
+                               "vi_hierarchical q(mu) loc")}
+    counted, runs = _counted(model)
+    draws = res.posterior_sample(5, n_pred)
+    runs[0] = 0
+    pred = ftt.predictive(6, counted, draws, batch_ndim=1, device="cuda")
+    row["predictive_model_runs"] = runs[0]
+    check(runs[0] == 1, f"vi_hierarchical: {runs[0]} predictive model runs, want 1")
+    zs = []
+    for i in range(17):
+        y = pred[f"y#{i}"].double()
+        check(y.shape == (n_pred, 5) and bool(torch.isfinite(y).all()), f"predictive y#{i}")
+        diff = y - draws[f"theta#{i}"].double()[:, None]
+        zs.append((diff.mean(0) / (diff.std(0) / math.sqrt(n_pred))).abs().max().item())
+    row["predictive_max_abs_z"] = max(zs)
+    emit(row)
+    check(syncs == 1, f"vi_hierarchical: {syncs} host syncs per run, want 1 (the history)")
+    check(max(zs) < 5.0, f"vi_hierarchical: a predictive y mean is {max(zs):.2f} MC-SE from its theta")
+
+
+def vi_plate_stats(params, y_np):
+    """q on the plate against the exact posterior, in its sds (s/sqrt(N)
+    for mu, s/sqrt(2N) for sigma, 1/sqrt(2N) for log sigma): q(mu)'s loc -
+    ybar, q(sigma)'s median - s, and the two guide scales over those sds.
+    ``params`` of either package."""
+    n = y_np.size
+    ybar, s = float(y_np.mean()), float(y_np.std())
+    sd_mu, sd_ls = s / math.sqrt(n), 1.0 / math.sqrt(2 * n)
+
+    def scale(p):
+        return math.log1p(math.exp(float(p["raw_scale"])))  # softplus
+
+    return {"mu_loc_z": (float(params["mu"]["loc"]) - ybar) / sd_mu,
+            "sigma_median_z": (math.exp(float(params["sigma"]["loc"])) - s) / (s * sd_ls),
+            "mu_scale_ratio": scale(params["mu"]) / sd_mu,
+            "log_sigma_scale_ratio": scale(params["sigma"]) / sd_ls}
+
+
+def vi_plate_run(staged, seed):
+    """The vi_plate configuration: 64 MC samples at lr 0.05, VI_PLATE_SEGMENTS
+    segments of VI_PLATE_ITERATIONS iterations chained through resume=,
+    which restarts Adam's moments and schedule; segment i takes seed + i."""
+    import fugue_tpu_torch as ftt
+
+    cfg = ftt.VIConfig(n_iterations=VI_PLATE_ITERATIONS, n_samples=64, learning_rate=0.05,
+                       plateau_window=10**9, check_every=VI_PLATE_ITERATIONS)
+    res = None
+    for i in range(VI_PLATE_SEGMENTS):
+        res = ftt.optimize_meanfield_vi(seed + i, staged=staged, config=cfg, resume=res)
+    return res
+
+
+def phase_vi_plate():
+    """Mean-field VI on the 2^20-row plate: 64 MC samples per iteration, so
+    each iteration is one plate-kernel call at (64, 2^20)."""
+    import fugue_tpu_torch as ftt
+    from fugue_tpu_torch.ops import kernels as K
+
+    n_iter = VI_PLATE_SEGMENTS * VI_PLATE_ITERATIONS
+    y_np = plate_numpy_data(MAIN_SHAPE[1])
+    y = torch.as_tensor(y_np, dtype=torch.float32, device="cuda")
+    model_runs = [0]
+    staged = ftt.stage(plate_model(y, model_runs), device="cuda")
+    torch.cuda.synchronize()
+    model_runs[0] = 0
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
+    res, wall, syncs = _timed_syncs(lambda: vi_plate_run(staged, 700))
+    launches = dict(K.LAUNCHES)
+    runs = model_runs[0]
+    stats = vi_plate_stats(res.params, y_np)
+    row = {"phase": "vi_plate", "card": card_line(), "rows": MAIN_SHAPE[1], "mc_samples": 64,
+           "iterations": n_iter, "segments": VI_PLATE_SEGMENTS, "wall_s": wall,
+           "iterations_per_s": n_iter / wall, "ms_per_iteration": 1e3 * wall / n_iter,
+           "host_syncs_per_run": syncs, "batched_model_runs": runs, "launches": launches, **stats}
+    emit(row)
+    for k, v in stats.items():
+        _within(v, VI_PLATE[k], VI_REF_RUNS["plate"], f"vi_plate {k}")
+    check(runs == n_iter and launches["nll"] == runs,
+          f"vi_plate: {launches['nll']} plate kernel calls, {runs} model runs, {n_iter} iterations")
+    check(syncs == VI_PLATE_SEGMENTS, f"vi_plate: {syncs} host syncs, want one per segment")
+    return launches
+
+
+def phase_vi_scale():
+    """bench_vi_scale at full width: d = 512, N = 16,384, mean-field 3,000 x
+    8 and full-rank 6 x 3,000 x 16 on the lr ladder, against the exact
+    posterior."""
+    import fugue_tpu_torch as ftt
+
+    X, y, L, pmean, psd = vi_scale_data()
+    Xt, yt, Lt = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (X, y, L))
+    zero = torch.zeros(VI_SCALE_D, device="cuda")
+
+    def model():
+        w = ftt.sample("w", ftt.MultivariateNormal(zero, scale_tril=Lt))
+        ftt.observe("y", ftt.Normal(Xt @ w, 1.0), yt)
+
+    staged = ftt.stage(model, device="cuda")
+    cfg = ftt.VIConfig(n_iterations=3000, n_samples=8, plateau_window=10**9, check_every=3000,
+                       learning_rate=0.02)
+    rm, mf_wall, mf_syncs = _timed_syncs(lambda: ftt.optimize_meanfield_vi(40, staged=staged,
+                                                                            config=cfg))
+    mf_err = float(np.max(np.abs(rm.params["w"]["loc"].double().cpu().numpy() - pmean) / psd))
+
+    def fullrank():
+        rf = None
+        for si, lr in enumerate(VI_SCALE_LADDER):
+            seg = ftt.VIConfig(n_iterations=VI_SCALE_SEGMENT, n_samples=16,
+                               plateau_window=10**9, check_every=VI_SCALE_SEGMENT,
+                               learning_rate=lr)
+            rf = ftt.optimize_fullrank_vi(41 + si, staged=staged, config=seg, resume=rf)
+        return rf
+
+    rf, fr_wall, fr_syncs = _timed_syncs(fullrank)
+    fr_err = float(np.max(np.abs(rf.params["loc"].double().cpu().numpy() - pmean) / psd))
+    cov = rf.guide.covariance(rf.params).double().cpu().numpy()
+    ratio = np.sqrt(np.diag(cov)) / psd
+    fr_iters = VI_SCALE_SEGMENT * len(VI_SCALE_LADDER)
+    row = {"phase": "vi_scale", "card": card_line(), "d": VI_SCALE_D, "rows": VI_SCALE_N,
+           "meanfield_wall_s": mf_wall, "meanfield_ms_per_iteration": 1e3 * mf_wall / 3000,
+           "fullrank_wall_s": fr_wall, "fullrank_ms_per_iteration": 1e3 * fr_wall / fr_iters,
+           "fullrank_iterations": fr_iters, "host_syncs": mf_syncs + fr_syncs,
+           "mf_err": mf_err, "fr_err": fr_err, "fr_sd_ratio_min": float(ratio.min()),
+           "fr_sd_ratio_max": float(ratio.max()), "reference": VI_SCALE}
+    emit(row)
+    check(np.isfinite(ratio).all() and np.isfinite(mf_err) and np.isfinite(fr_err),
+          "vi_scale: non-finite result")
+    # no worse than the JAX package's: the errors bounded from above, the sd
+    # ratios' range from outside
+    runs = VI_REF_RUNS["scale"]
+    for name, x, side in (("mf_err", mf_err, 1), ("fr_err", fr_err, 1),
+                          ("fr_sd_ratio_min", ratio.min(), -1), ("fr_sd_ratio_max", ratio.max(), 1)):
+        _within(float(x), VI_SCALE[name], runs, f"vi_scale {name}", side)
+
+
+def _abc_sim(n_obs):
+    """bench_abc's simulator: mu_p ~ N(0, 2^2), n_obs draws of N(mu_p, 1)."""
+    import fugue_tpu_torch as ftt
+
+    def sim():
+        mu = ftt.sample("mu_p", ftt.Normal(0.0, 2.0))
+        return ftt.sample("xs", ftt.Normal(mu, 1.0), sample_shape=(n_obs,))
+
+    return sim
+
+
+def _abc_distance(a, b):
+    return torch.abs(torch.mean(a) - torch.mean(b))
+
+
+def phase_abc_rejection():
+    """bench_abc's rejection: eps 0.02, 4,096 samples, batch 2^17 x 16."""
+    import fugue_tpu_torch as ftt
+
+    obs_np = abc_data()
+    post_m, post_sd = abc_posterior(obs_np)
+    obs = torch.as_tensor(obs_np, dtype=torch.float32, device="cuda")
+    staged = ftt.stage(_abc_sim(ABC_N_OBS), device="cuda")
+    batch, inner = 1 << 17, 16
+    ftt.abc_rejection(0, staged=staged, observed=obs, distance=_abc_distance, epsilon=0.02,
+                      n_samples=16, batch_size=batch, max_attempts=1 << 26)  # first use
+    res, wall, syncs = _timed_syncs(lambda: ftt.abc_rejection(
+        30, staged=staged, observed=obs, distance=_abc_distance, epsilon=0.02, n_samples=4096,
+        batch_size=batch, inner_batches=inner, max_attempts=1 << 26))
+    x = res.particles["mu_p"].double().cpu().numpy()
+    check(x.shape == (4096,) and np.isfinite(x).all(), "abc_rejection particles")
+    check(float(res.distances.max()) <= 0.02, "abc_rejection: a particle farther than epsilon")
+    z = (x.mean() - post_m) / (post_sd / math.sqrt(x.size))
+    ratio = x.std() / post_sd
+    row = {"phase": "abc_rejection", "card": card_line(), "n_obs": ABC_N_OBS, "epsilon": 0.02,
+           "batch": batch, "inner_batches": inner, "wall_s": wall,
+           "abc_rejection_sims_per_sec_64obs": res.n_attempts / wall,
+           "n_attempts": res.n_attempts, "dispatches": res.n_attempts // (batch * inner),
+           "host_syncs_per_run": syncs, "mean": x.mean(), "post_mean": post_m, "mean_z": z,
+           "sd_ratio": ratio}
+    emit(row)
+    check(abs(z) < 5.0, f"abc_rejection mean {x.mean()} is {z:.2f} SE from {post_m}")
+    check(abs(ratio - 1.0) < 0.06, f"abc_rejection sd ratio {ratio}")
+    check(syncs == row["dispatches"], f"abc_rejection: {syncs} host syncs for {row['dispatches']} "
+          "dispatches, want one read each")
+
+
+def phase_abc_smc():
+    """bench_abc's ABC-SMC: 2,048 particles, eps (0.5, 0.2, 0.1, 0.05),
+    batch 16,384; the weighted run, and abc_smc (the same weighted run and
+    the terminal systematic resample)."""
+    import fugue_tpu_torch as ftt
+    from fugue_tpu_torch.ops import kernels as K
+
+    obs_np = abc_data()
+    post_m, post_sd = abc_posterior(obs_np)
+    obs = torch.as_tensor(obs_np, dtype=torch.float32, device="cuda")
+    staged = ftt.stage(_abc_sim(ABC_N_OBS), device="cuda")
+    eps = (0.5, 0.2, 0.1, 0.05)
+    cfg = ftt.ABCSMCConfig(n_particles=2048, epsilons=eps, batch_size=16384,
+                           max_attempts_per_stage=1 << 22)
+    kw = dict(staged=staged, observed=obs, distance=_abc_distance, config=cfg,
+              param_addresses=("mu_p",))
+    ftt.abc_smc_weighted(0, **dict(kw, config=ftt.ABCSMCConfig(
+        n_particles=256, epsilons=eps[:2], batch_size=16384)))  # first use
+    launches = {}
+    rows = {}
+    for name, fn in (("weighted", ftt.abc_smc_weighted), ("equal_weight", ftt.abc_smc)):
+        for k in K.LAUNCHES:
+            K.LAUNCHES[k] = 0
+        res, wall, syncs = _timed_syncs(lambda: fn(31, **kw))
+        launches[name] = dict(K.LAUNCHES)
+        rows[name] = (res, wall, syncs)
+    rw, wall, syncs = rows["weighted"]
+    w = torch.exp(rw.log_weights.double()).cpu().numpy()
+    x = rw.particles["mu_p"].double().cpu().numpy()
+    ess = 1.0 / float(np.sum(w * w))
+    wm = float(np.sum(w * x))
+    eq = rows["equal_weight"][0].particles["mu_p"].double().cpu().numpy()
+    se_w = post_sd / math.sqrt(ess)
+    se_eq = post_sd * math.sqrt(1.0 / ess + 1.0 / eq.size)
+    n_dispatch = rw.n_attempts // cfg.batch_size
+    row = {"phase": "abc_smc", "card": card_line(), "particles": 2048, "epsilons": list(eps),
+           "weighted_wall_s": wall, "abc_smc_wall_s": rows["equal_weight"][1],
+           "n_attempts": rw.n_attempts, "sims_per_s": rw.n_attempts / wall,
+           "dispatches": n_dispatch, "host_syncs_per_run": syncs,
+           "ms_per_dispatch": 1e3 * wall / n_dispatch, "ess": ess,
+           "weighted_mean": wm, "equal_weight_mean": float(eq.mean()), "post_mean": post_m,
+           "weighted_mean_z": (wm - post_m) / se_w, "equal_weight_mean_z": (eq.mean() - post_m) / se_eq,
+           "launches": launches}
+    emit(row)
+    check(np.isfinite(x).all() and abs(w.sum() - 1.0) < 1e-6, "abc_smc weights")
+    check(abs(row["weighted_mean_z"]) < 5.0, f"abc_smc weighted mean {wm} vs {post_m}")
+    check(abs(row["equal_weight_mean_z"]) < 5.0, f"abc_smc equal-weight mean {eq.mean()} vs {post_m}")
+    check(syncs == n_dispatch, f"abc_smc: {syncs} host syncs for {n_dispatch} dispatches")
+    # both kernels against their plain versions on this run's own 2,048
+    # log-weights (these launches come after the counts were read)
+    lw = rw.log_weights.float()
+    kernel_rows = {"logsumexp": _lse_f32_check(lw, "abc_smc logsumexp"),
+                   "systematic_resample": [
+                       _resample_f32_contract(lw, lw.double().cpu().numpy(), u0v,
+                                              f"abc_smc resample u0={u0v}")
+                       for u0v in (0.37, 0.0, 1.0 - 2.0**-24)]}
+    emit({"phase": "abc_smc", "kernels_vs_plain_on_the_run_weights": kernel_rows})
+    # one logsumexp per proposal stage (its weights' normalisation) and one
+    # for the final normalisation; abc_smc adds the one terminal resample
+    n_stages = len(eps)
+    for name, want_resample in (("weighted", 0), ("equal_weight", 1)):
+        got = launches[name]
+        check(got["lse"] == n_stages and got["resample"] == want_resample and got["nll"] == 0,
+              f"abc_smc {name}: launches {got}, want {n_stages} logsumexp, {want_resample} resample")
+    return launches["equal_weight"]
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1373,7 +1818,7 @@ def main(argv=None) -> int:
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     import fugue_tpu_torch  # noqa: F401  (fails outside a checkout)
 
-    kernel_rows = launches = smc_rows = nuts_launches = chees_launches = None
+    kernel_rows = launches = smc_rows = nuts_launches = chees_launches = vi_launches = None
     smc_launches = {"lse": 0, "resample": 0}
     if "build" in phases:
         phase_build()
@@ -1403,6 +1848,16 @@ def main(argv=None) -> int:
         phase_mh_coin()
     if "mh_hierarchical" in phases:
         phase_mh_hierarchical()
+    if "vi_hierarchical" in phases:
+        phase_vi_hierarchical()
+    if "vi_plate" in phases:
+        vi_launches = phase_vi_plate()
+    if "vi_scale" in phases:
+        phase_vi_scale()
+    if "abc_rejection" in phases:
+        phase_abc_rejection()
+    if "abc_smc" in phases:
+        _add_launches(smc_launches, phase_abc_smc())
 
     print(card_line(), flush=True)
     if set(phases) != set(PHASES):
@@ -1417,12 +1872,13 @@ def main(argv=None) -> int:
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
     emit({"kernels": [
-        # the plate kernel's calls on its three paths: HMC, NUTS and ChEES
+        # the plate kernel's calls on its four paths: HMC, NUTS, ChEES and VI
         entry("normal_loglik_sum_value_and_grad", "nll", "normal_loglik_sum",
               kernel_rows[MAIN_SHAPE],
-              launches["nll"] + nuts_launches["nll"] + chees_launches["nll"]),
-        # the SMC kernels' calls on their five paths: the smc phase's three
-        # runs and the coin (two runs), mixture and discrete phases
+              launches["nll"] + nuts_launches["nll"] + chees_launches["nll"]
+              + vi_launches["nll"]),
+        # the SMC kernels' calls on their six paths: the smc phase's three
+        # runs, the coin (two runs), mixture and discrete phases, and abc_smc
         entry("logsumexp", "lse", "logsumexp", smc_rows[("lse", N_PARTICLES)],
               smc_launches["lse"]),
         entry("systematic_resample", "resample", "systematic_resample",

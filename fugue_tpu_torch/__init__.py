@@ -16,7 +16,11 @@ log-sum-exp and systematic-resampling kernels in CUDA
 (``ops.kernels.plogsumexp``, ``ops.kernels.psystematic_resample``).
 ChEES-HMC: one trajectory length for all chains, learned from the chain
 batch, with ``CheesSession``. Adaptive single-site MH over a chain batch
-(``adaptive_mcmc_chain``).
+(``adaptive_mcmc_chain``). Mean-field and full-rank VI with optax's Adam
+and SGD rules (``optimize_meanfield_vi``, ``optimize_fullrank_vi``), ABC
+rejection and ABC-SMC (``abc_rejection``, ``abc_smc_weighted``,
+``abc_smc``), predictive sampling (``predictive``), and the replay, score,
+safe, strict and reconciling handlers.
 Entry points run on the card (``device="cuda"``) unless the caller names
 another device. Module paths and public names mirror ``fugue_tpu``. The
 package imports no JAX.
@@ -88,6 +92,18 @@ from .core.model import (
 )
 from .core.rng import address_seed
 from .core import transforms
+from .inference.abc import (
+    ABCError,
+    ABCResult,
+    ABCSMCConfig,
+    SummaryStatsDistance,
+    abc_rejection,
+    abc_scalar_summary,
+    abc_smc,
+    abc_smc_weighted,
+    euclidean_distance,
+    manhattan_distance,
+)
 from .inference.chees import ChEESConfig, ChEESResult, CheesSession, chees_chain
 from .inference.diagnostics import ParameterSummary, print_diagnostics, summarize_samples
 from .inference.hmc import HMCConfig, HMCResult, HmcSession, hmc_chain, hmc_transition
@@ -101,7 +117,36 @@ from .inference.mcmc_utils import (
 )
 from .inference.mh import MHResult, adaptive_mcmc_chain
 from .inference.nuts import NUTSConfig, NUTSResult, NutsSession, nuts_chain, nuts_transition
+from .inference.predictive import posterior_predictive, predictive
 from .inference.smc import SMCConfig, SMCResult, adaptive_smc, importance_reweight
 from .ops.kernels import pnormal_loglik_sum
+from .inference.vi import (
+    FullRankGuide,
+    GuideError,
+    MeanFieldGuide,
+    VIConfig,
+    VIResult,
+    elbo,
+    estimate_elbo,
+    optimize_fullrank_vi,
+    optimize_meanfield_vi,
+)
 from .runtime.handler import Handler, run
+from .runtime.interpreters import (
+    PredictiveHandler,
+    PriorHandler,
+    ReconcileReport,
+    ReconcilingScoreGivenTrace,
+    ReplayHandler,
+    SafeReplayHandler,
+    SafeScoreGivenTrace,
+    ScoreGivenTrace,
+    StrictScoreGivenTrace,
+    ValuesHandler,
+    score_given_trace,
+    score_given_trace_reconciled,
+    score_given_trace_safe,
+    score_given_trace_strict,
+)
 from .runtime.staging import StagedModel, stage
+from .runtime.trace import Choice, Trace

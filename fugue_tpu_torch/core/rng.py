@@ -40,3 +40,11 @@ def site_seed(seed: int, address: str) -> int:
 def site_generator(seed: int, address: str, device) -> torch.Generator:
     """A generator on ``device`` for the draw at ``address``."""
     return torch.Generator(device=device).manual_seed(site_seed(seed, address))
+
+
+def fold_seed(seed: int, *data: int) -> int:
+    """A seed derived from ``seed`` and the ints ``data``, one after another:
+    the counterpart of folding counters into a JAX key."""
+    for d in data:
+        seed = _mix(int(seed), int(d))
+    return int(seed)

@@ -137,6 +137,14 @@ def trace_address_not_found(addr: str) -> TraceAccessError:
     )
 
 
+def type_mismatch(addr: str, expected: str, actual: str) -> TypeMismatchError:
+    return TypeMismatchError(
+        ErrorCode.TYPE_MISMATCH,
+        f"value at {addr!r} has type {actual}, expected {expected}",
+        {"address": addr, "expected": expected, "actual": actual},
+    )
+
+
 # ---------------------------------------------------------------------------
 # Parameter validation helpers. They run eagerly on concrete parameters at
 # distribution construction. A value is concrete unless a torch.func

@@ -22,6 +22,12 @@ adaptation arrays, the stage counter) becomes this package's ``SMCState``
 through ``smc_state_from_numpy``, and ``adaptive_smc(resume=...)`` finishes
 the ladder here. The JAX key does not carry over: the caller seeds the
 generator that draws the rest of the run.
+
+A JAX ``VIResult.params`` (``{address: {loc, raw_scale | raw_a, raw_b}}``,
+``{loc, raw_scale}`` or ``{loc, raw_tril}``) or its numpy leaves become
+this package's flat-backed params through ``vi_params_from_numpy``, and
+``optimize_meanfield_vi(resume=...)`` or ``optimize_fullrank_vi(resume=...)``
+continues from them (the JAX ``VIResult`` itself also works there).
 """
 
 from __future__ import annotations
@@ -144,3 +150,31 @@ def smc_state_from_numpy(particles: Dict[str, np.ndarray], log_weights, log_like
                     log_evidence=scalar(log_evidence),
                     adapt=AdaptationState(log_scale=ls, t=t),
                     generator_state=generator.get_state(), stage=int(stage))
+
+
+def vi_params_from_numpy(params, *, device="cuda", dtype=torch.float32):
+    """VI parameters from numpy arrays (or anything ``np.asarray`` takes),
+    one or two levels deep, as views of ONE flat tensor on ``device``: the
+    same nesting, each leaf's shape kept."""
+    leaves = []
+    for key in sorted(params):
+        v = params[key]
+        if isinstance(v, dict):
+            leaves += [((str(key), str(name)), np.asarray(v[name])) for name in sorted(v)]
+        else:
+            leaves.append(((str(key),), np.asarray(v)))
+    for path, a in leaves:
+        if a.dtype.kind not in "fiu":
+            raise ValueError(f"VI parameter {'/'.join(path)} has dtype {a.dtype}, not a real array")
+    flat = tensor_from_numpy(np.concatenate([a.reshape(-1).astype(np.float64) for _, a in leaves])
+                             if leaves else np.zeros(0), device=device, dtype=dtype)
+    out: dict = {}
+    off = 0
+    for path, a in leaves:
+        view = flat[off:off + a.size].view(a.shape)
+        off += a.size
+        if len(path) == 1:
+            out[path[0]] = view
+        else:
+            out.setdefault(path[0], {})[path[1]] = view
+    return out

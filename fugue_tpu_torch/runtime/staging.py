@@ -15,6 +15,10 @@ flat unconstrained position ``z``:
   ``vmap(..., randomness="different")``, for SMC's stage 0, and
   ``sample_prior_batch_scored`` scores them in the same run, for MH's
   initial state;
+- ``simulate`` and ``replay_partial`` run the model as a simulator (fresh
+  draws, or some latents pinned and the rest drawn) and return its value
+  with the trace; ``simulate_batch`` and ``replay_partial_batch`` do the
+  same for a batch in ONE model run, for ABC and predictive;
 - ``flatten_constrained`` / ``unflatten_constrained`` map latents to the flat
   CONSTRAINED layout that single-site MH proposes in, with any leading
   batch dimensions.
@@ -46,10 +50,12 @@ from ..errors import ErrorCode, StagingError
 from .handler import run
 from .interpreters import (
     ConstrainHandler,
+    PartialValuesHandler,
     PriorHandler,
     UnconstrainHandler,
     ValuesHandler,
 )
+from .trace import Choice, Trace
 
 
 @dataclass(frozen=True)
@@ -187,6 +193,71 @@ class StagedModel:
         """The trace of a replay with the given latents: values and the
         three density accumulators."""
         return self._run(ValuesHandler(latents))[1]
+
+    # -- simulation (ABC, predictive) ---------------------------------------
+
+    def simulate(self, seed: int):
+        """Fresh prior run → (model return value, latent dict): the
+        likelihood-free simulator."""
+        result, trace = self._run(PriorHandler(seed, self.device))
+        return result, trace.latents()
+
+    def replay_partial(self, seed: int, values: Dict[str, Any]):
+        """Replay with the latents in ``values`` pinned and the others (a
+        simulator's noise sites) drawn fresh → (model return value, trace)."""
+        return self._run(PartialValuesHandler(seed, values, self.device))
+
+    def _batched(self, handler, n: int, values=None, randomness: str = "different"):
+        """One model run under ``vmap`` over n rows → (results, batched
+        Trace): every value, log-prob and accumulator gains a
+        leading (n,) dim, and the entries of ``values`` pin row by row. The
+        supports and observed flags, which do not depend on the row, come
+        from the one run."""
+        dt = settings.real_dtype()
+        meta = {}
+
+        def as_real(x):  # a Python number becomes a tensor made on the device
+            if isinstance(x, torch.Tensor):
+                return x.to(dt)
+            return torch.full((), float(x), dtype=dt, device=self.device)
+
+        def one(vals):
+            result, trace = self._run(handler(vals))
+            meta.update({a: (c.support, c.is_observed) for a, c in trace.choices.items()})
+            return (result,
+                    {a: c.value for a, c in trace.choices.items()},
+                    {a: as_real(c.log_prob) for a, c in trace.choices.items()},
+                    as_real(trace.log_prior), as_real(trace.log_likelihood),
+                    as_real(trace.log_factors))
+
+        if values:
+            out = vmap(one, randomness=randomness)(values)
+        else:
+            out = vmap(lambda _: one({}), randomness=randomness)(
+                torch.zeros(n, device=self.device))
+        result, value, log_prob, lp, ll, lf = out
+        choices = {a: Choice(value[a], log_prob[a], *meta[a]) for a in value}
+        return result, Trace(choices, lp, ll, lf)
+
+    def simulate_batch(self, seed: int, n: int):
+        """``n`` fresh prior runs in ONE model run (``vmap``, a different
+        draw per row) → (model return values, latent dict), each with a
+        leading (n,) dim."""
+        result, trace = self._batched(lambda _: PriorHandler(seed, self.device), n)
+        return result, trace.latents()
+
+    def replay_partial_batch(self, seed: int, values: Dict[str, Any], *,
+                             randomness: str = "different"):
+        """``replay_partial`` for a batch in ONE model run: each entry of
+        ``values`` has a leading (n,) dim and pins row by row, the other
+        latents are drawn fresh, a different draw per row (``randomness=
+        "same"``: one draw shared by every row) → (model return values,
+        batched Trace)."""
+        if not values:
+            raise ValueError("replay_partial_batch needs at least one pinned site; "
+                             "simulate_batch draws every site")
+        return self._batched(lambda v: PartialValuesHandler(seed, v, self.device), 0,
+                             values, randomness)
 
     # -- flat constrained layout (single-site MH proposes here) ------------
 

@@ -4,17 +4,19 @@ The port of ``fugue_tpu/runtime/trace.py``: choices hold tensors (batched
 under ``vmap``), and the three log-weight accumulators keep the reference
 split ``log_prior + log_likelihood + log_factors = total_log_weight``.
 Insertion order is preserved; staging orders sites by address. The typed
-getters return ``None`` for a missing address or another kind.
+getters return ``None`` for a missing address or another kind; their
+``*_result`` forms raise ``TraceAccessError`` or ``TypeMismatchError``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Dict, Iterator, Optional
 
 import torch
 
 from ..core.distributions import Support
+from ..errors import trace_address_not_found, type_mismatch
 
 KIND_REAL = "real"
 KIND_BOOL = "bool"
@@ -60,6 +62,21 @@ class Trace:
         """Record a choice; duplicate detection is the handler's job."""
         self.choices[str(addr)] = choice
 
+    def __contains__(self, addr) -> bool:
+        return str(addr) in self.choices
+
+    def __len__(self) -> int:
+        return len(self.choices)
+
+    def addresses(self) -> Iterator[str]:
+        return iter(self.choices.keys())
+
+    def sorted_addresses(self):
+        return sorted(self.choices.keys())
+
+    def get_choice(self, addr) -> Optional[Choice]:
+        return self.choices.get(str(addr))
+
     def _get_kind(self, addr, kind: str):
         c = self.choices.get(str(addr))
         if c is None or c.kind != kind:
@@ -75,6 +92,32 @@ class Trace:
     def get_int(self, addr):
         return self._get_kind(addr, KIND_INT)
 
+    get_f64 = get_real  # the reference's name
+
+    def _get_kind_result(self, addr, kind: str):
+        c = self.choices.get(str(addr))
+        if c is None:
+            raise trace_address_not_found(str(addr))
+        if c.kind != kind:
+            raise type_mismatch(str(addr), kind, c.kind)
+        return c.value
+
+    def get_real_result(self, addr):
+        return self._get_kind_result(addr, KIND_REAL)
+
+    def get_bool_result(self, addr):
+        return self._get_kind_result(addr, KIND_BOOL)
+
+    def get_int_result(self, addr):
+        return self._get_kind_result(addr, KIND_INT)
+
+    def values(self) -> Dict[str, Any]:
+        """Plain address → value dict, latent and observed."""
+        return {a: c.value for a, c in self.choices.items()}
+
     def latents(self) -> Dict[str, Any]:
         return {a: c.value for a, c in self.choices.items() if not c.is_observed}
+
+    def copy(self) -> "Trace":
+        return Trace(dict(self.choices), self.log_prior, self.log_likelihood, self.log_factors)
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time goes in one HMC, NUTS, ChEES or MH transition of the PyTorch port, on a GPU.
+"""Where the time goes in one HMC, NUTS, ChEES or MH transition, VI iteration or ABC dispatch of the PyTorch port, on a GPU.
 
-    python3 scripts/profile_torch_hmc.py [--engine hmc|nuts|chees|mh] [--out DIR]
+    python3 scripts/profile_torch_hmc.py [--engine hmc|nuts|chees|mh|vi|abc] [--out DIR]
 
 For chip_smoke.py's two models at its shapes, eight-schools (1024 chains,
 L=32) and the 2^20-row Gaussian plate (64 chains, L=16): it times transitions with CUDA
@@ -30,6 +30,16 @@ per transition.
 as ``adaptive_mcmc_chain``'s warmup) on chip_smoke.py's MH cells, the coin
 flip at 4,096 chains and the 20-site hierarchical model at 262,144, and
 reports per transition (one batched model run each).
+
+``--engine vi`` runs mean-field VI iterations (``vi._iteration``: one
+batched model run over the MC samples, one gradient, Adam and the clamp)
+on chip_smoke.py's VI cells, the 20-site model at 128 MC samples and the
+2^20-row plate at 64, and reports per iteration.
+
+``--engine abc`` runs chip_smoke.py's ABC cells whole: rejection (16
+sub-batches of 2^17 per dispatch) and weighted ABC-SMC (2,048 particles,
+4 epsilons, batch 16,384), and reports per dispatch (the run over its
+dispatches, one host read each).
 Needs a CUDA device; imports no JAX.
 """
 
@@ -42,17 +52,41 @@ import sys
 import time
 
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import fugue_tpu_torch as ftt  # noqa: E402
-from chip_smoke import (coin_model, eight_schools_model, hierarchical_model,  # noqa: E402
-                        plate_data, plate_model)
-from fugue_tpu_torch.inference import chees, hmc, mh, nuts  # noqa: E402
+from chip_smoke import (ABC_N_OBS, _abc_distance, _abc_sim, abc_data,  # noqa: E402
+                        coin_model, eight_schools_model, hierarchical_model, plate_data,
+                        plate_model, traced_kernels)
+from fugue_tpu_torch.inference import chees, hmc, mh, nuts, vi  # noqa: E402
 
 MAX_DEPTH = 8
+
+
+def _trace(name, engine, step, n_traced, out_dir):
+    """``step()`` run ``n_traced`` times under the profiler
+    (``chip_smoke.traced_kernels``), its key_averages table written to
+    ``out_dir``: (the kernel events, their device µs, the eight kernels with
+    the most device µs, the traced wall seconds)."""
+    out = {}
+
+    def run():
+        t0 = time.perf_counter()
+        for _ in range(n_traced):
+            step()
+        torch.cuda.synchronize()
+        out["wall"] = time.perf_counter() - t0
+
+    prof, kernels = traced_kernels(run, cpu=True)
+    per_kernel = {}
+    for e in kernels:
+        per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"{name}_{engine}_key_averages.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=60))
+    return kernels, sum(per_kernel.values()), top, out["wall"]
 
 
 def profile_model(name, model, n_chains, n_leapfrog, eps, out_dir, engine="hmc", T=None):
@@ -106,25 +140,16 @@ def profile_model(name, model, n_chains, n_leapfrog, eps, out_dir, engine="hmc",
 
     n_traced = 2
     counts.update(evals=0, syncs=0)  # the step count runs on: the Halton jitter moves
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_traced):
-            q = transition(q)
-        torch.cuda.synchronize()
-        traced_wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    per_kernel = {}
-    for e in kernels:
-        per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    state = {"q": q}
+
+    def step():
+        state["q"] = transition(state["q"])
+
+    kernels, busy_us, top, traced_wall = _trace(name, engine, step, n_traced, out_dir)
     evals = counts["evals"]
     # the idle share compares device time per evaluation with the untraced
     # wall per evaluation (NUTS transitions differ in length)
     wall_per_eval = wall * n_timed / timed_evals
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"{name}_{engine}_key_averages.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=60))
     unit = {"nuts": "lockstep_leaf", "mh": "transition"}.get(engine, "batched_gradient")
     row = {
         "model": name, "engine": engine, "chains": n_chains, "transition_ms": wall * 1e3,
@@ -147,15 +172,101 @@ def profile_model(name, model, n_chains, n_leapfrog, eps, out_dir, engine="hmc",
     return row
 
 
+def profile_calls(name, engine, call, units_per_call, unit, out_dir, n_timed=5, n_traced=2):
+    """``call()`` timed ``n_timed`` times without the profiler (after one
+    warm-up) and traced ``n_traced`` times: per unit (``units_per_call()``
+    units per call), the wall ms, kernels, device µs and the idle share."""
+    call()
+    torch.cuda.synchronize()
+    units = 0
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        call()
+        units += units_per_call()
+    torch.cuda.synchronize()
+    wall_per_unit = (time.perf_counter() - t0) / units
+    counted = {"units": 0}
+
+    def step():
+        call()
+        counted["units"] += units_per_call()
+
+    kernels, busy_us, top, traced_wall = _trace(name, engine, step, n_traced, out_dir)
+    traced_units = counted["units"]
+    return {
+        "model": name, "engine": engine, f"ms_per_{unit}": wall_per_unit * 1e3,
+        f"kernels_per_{unit}": len(kernels) / traced_units,
+        f"device_us_per_{unit}": busy_us / traced_units,
+        "device_idle_share": 1.0 - busy_us * 1e-6 / (traced_units * wall_per_unit),
+        "device_idle_share_under_profiler": 1.0 - busy_us * 1e-6 / traced_wall,
+        f"top_kernels_us_per_{unit}": [[k[:80], v / traced_units] for k, v in top],
+    }
+
+
+def vi_rows(out_dir):
+    """Mean-field VI iterations on the 20-site model (128 MC samples) and
+    the 2^20-row plate (64)."""
+    for name, model, n_mc in (("hierarchical", hierarchical_model("cuda"), 128),
+                              ("gaussian_plate", plate_model(plate_data(1 << 20)), 64)):
+        staged = ftt.stage(model, device="cuda")
+        guide = vi._meanfield_guide_for(staged)
+        loss = vi._loss(guide, n_mc)
+        opt = vi._optimizer(vi.VIConfig(n_iterations=2000))
+        draws = vi.GeneratorDraws(torch.Generator(device="cuda").manual_seed(0))
+        state = {"theta": guide.init_flat()}
+
+        def ten():
+            for _ in range(10):
+                state["theta"], _ = vi._iteration(guide, loss, opt, state["theta"], draws)
+
+        row = profile_calls(name, "vi", ten, lambda: 10, "iteration", out_dir)
+        row["mc_samples"] = n_mc
+        yield row
+
+
+def abc_rows(out_dir):
+    """The ABC cells whole, per dispatch."""
+    staged = ftt.stage(_abc_sim(ABC_N_OBS), device="cuda")
+    obs = abc_data()
+    last = {}
+
+    def rejection():
+        last["res"] = ftt.abc_rejection(30, staged=staged, observed=obs, distance=_abc_distance,
+                                        epsilon=0.02, n_samples=4096, batch_size=1 << 17,
+                                        inner_batches=16, max_attempts=1 << 26)
+
+    row = profile_calls("rejection", "abc", rejection,
+                        lambda: last["res"].n_attempts // (16 << 17), "dispatch", out_dir)
+    row["sims_per_dispatch"] = 16 << 17
+    yield row
+    cfg = ftt.ABCSMCConfig(n_particles=2048, epsilons=(0.5, 0.2, 0.1, 0.05), batch_size=16384,
+                           max_attempts_per_stage=1 << 22)
+
+    def smc():
+        last["res"] = ftt.abc_smc_weighted(31, staged=staged, observed=obs,
+                                           distance=_abc_distance, config=cfg,
+                                           param_addresses=("mu_p",))
+
+    row = profile_calls("smc_weighted", "abc", smc,
+                        lambda: last["res"].n_attempts // 16384, "dispatch", out_dir)
+    row["sims_per_dispatch"] = 16384
+    yield row
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="profile_out",
                     help="directory for the key_averages tables")
-    ap.add_argument("--engine", choices=("hmc", "nuts", "chees", "mh"), default="hmc",
-                    help="profile HMC transitions (L fixed), NUTS, ChEES or MH transitions")
+    ap.add_argument("--engine", choices=("hmc", "nuts", "chees", "mh", "vi", "abc"),
+                    default="hmc", help="profile HMC transitions (L fixed), NUTS, ChEES or MH "
+                    "transitions, VI iterations or ABC dispatches")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_hmc: no CUDA device")
+    if args.engine in ("vi", "abc"):
+        for row in (vi_rows if args.engine == "vi" else abc_rows)(args.out):
+            print(json.dumps(row), flush=True)
+        return 0
     if args.engine == "mh":
         cells = (("coin", coin_model("cuda"), 4096, None, None, None),
                  ("hierarchical", hierarchical_model("cuda"), 262144, None, None, None))

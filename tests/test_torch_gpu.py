@@ -18,7 +18,11 @@ version's error of float64 in float32; systematic resampling in float64 to
 a deviation of at most 1 on fewer than 0.1% of slots, sorted, in range and
 the same run to run. A ChEES run and an adaptive MH run on the card equal
 the same runs on the CPU from the same draws, and one ChEES transition
-makes exactly one host sync (its τ read).
+makes exactly one host sync (its τ read). Mean-field VI on the plate
+equals its CPU run from the same draws, with one plate-kernel call per
+iteration and one host sync per run; predictive is one model run on the
+card; ABC-SMC's weight normalisations and terminal resample launch the
+SMC kernels as the code says, with one host sync per proposal dispatch.
 """
 
 import math
@@ -33,7 +37,7 @@ from chip_smoke import (_host_syncs, capture, conjugate_evidence_model, eight_sc
                         hierarchical_model, mixed_discrete_exact, mixed_discrete_model,
                         plate_model)
 from fugue_tpu_torch import settings
-from fugue_tpu_torch.inference import chees, hmc, mh, nuts
+from fugue_tpu_torch.inference import chees, hmc, mh, nuts, vi
 from fugue_tpu_torch.inference import mcmc_utils as mu_
 from fugue_tpu_torch.ops import kernels as K
 
@@ -533,3 +537,85 @@ def test_one_chees_transition_makes_one_host_sync():
     assert out[6] == 3 and K.LAUNCHES["nll"] - before["nll"] == 4
     assert _host_syncs(lambda: chees.chees_transition(staged.potential, q, z, log_u, eps, T,
                                                       0.75, im, 1024)) == 1
+
+
+class _CpuDraws(vi.GeneratorDraws):
+    """VI draws from a CPU generator, moved to the card: the same numbers
+    for a CUDA run and a CPU run."""
+
+    def __init__(self, seed, device):
+        super().__init__(torch.Generator().manual_seed(seed))
+        self.device = device
+
+    def _randn(self, shape, dtype):
+        return super()._randn(shape, dtype).to(self.device)
+
+    def gammas(self, a, b):
+        g1, g2 = super().gammas(a.cpu(), b.cpu())
+        return g1.to(self.device), g2.to(self.device)
+
+
+def test_vi_on_the_plate_on_cuda_equals_cpu():
+    """Mean-field VI on the plate, the same draws on both devices: the same
+    parameters and ELBO history (float64, 1e-10); on the card one kernel call
+    per iteration and one host sync (the history) per run."""
+    cfg = vi.VIConfig(n_iterations=40, n_samples=16, check_every=20, plateau_window=10**9)
+    cpu = vi.optimize_meanfield_vi(0, staged=_plate("cpu"), config=cfg, draws=_CpuDraws(3, "cpu"))
+    staged = _plate("cuda")
+    before = K.LAUNCHES["nll"]
+    gpu = vi.optimize_meanfield_vi(0, staged=staged, config=cfg, draws=_CpuDraws(3, "cuda"))
+    assert K.LAUNCHES["nll"] - before == 40
+    np.testing.assert_allclose(gpu.elbo_history, cpu.elbo_history, **TOL)
+    for a in ("mu", "sigma"):
+        for k in ("loc", "raw_scale"):
+            np.testing.assert_allclose(gpu.params[a][k].cpu().numpy(), cpu.params[a][k].numpy(),
+                                       **TOL)
+    assert _host_syncs(lambda: vi.optimize_meanfield_vi(0, staged=staged, config=cfg)) == 1
+
+
+def test_predictive_on_cuda_is_one_model_run():
+    runs = [0]
+    base = hierarchical_model("cuda", torch.float64)
+
+    def counted():
+        runs[0] += 1
+        return base()
+
+    staged = ftt.stage(counted, device="cuda")
+    res = vi.optimize_meanfield_vi(1, staged=staged, config=vi.VIConfig(n_iterations=50,
+                                                                         n_samples=16))
+    draws = res.posterior_sample(2, 512)
+    assert all(v.is_cuda and v.shape == (512,) for v in draws.values())
+    runs[0] = 0
+    pred = ftt.predictive(3, counted, draws, batch_ndim=1)
+    assert runs[0] == 1 and pred["y#0"].shape == (512, 5) and pred["y#0"].is_cuda
+
+
+def test_abc_smc_on_cuda_launches_the_smc_kernels():
+    def sim():
+        mu = ftt.sample("mu_p", ftt.Normal(0.0, 2.0))
+        return ftt.sample("xs", ftt.Normal(mu, 1.0), sample_shape=(16,))
+
+    obs_np = 1.0 + np.random.default_rng(77).standard_normal(16)
+    obs = torch.as_tensor(obs_np, device="cuda")
+    post_m, post_sd = 16 * obs_np.mean() / 16.25, 1.0 / math.sqrt(16.25)
+    staged = ftt.stage(sim, device="cuda")
+    cfg = ftt.ABCSMCConfig(n_particles=512, epsilons=(0.5, 0.2, 0.1), batch_size=8192,
+                           max_attempts_per_stage=1 << 20)
+
+    def dist(a, b):
+        return torch.abs(torch.mean(a) - torch.mean(b))
+
+    before = dict(K.LAUNCHES)
+    res = ftt.abc_smc(5, staged=staged, observed=obs, distance=dist, config=cfg,
+                      param_addresses=("mu_p",))
+    assert K.LAUNCHES["lse"] - before["lse"] == 3
+    assert K.LAUNCHES["resample"] - before["resample"] == 1
+    x = res.particles["mu_p"].cpu().numpy()
+    assert x.shape == (512,) and abs(x.mean() - post_m) < 5 * post_sd * math.sqrt(2 / 512)
+    rej = dict(staged=staged, observed=obs, distance=dist, epsilon=0.05, n_samples=256,
+               batch_size=1 << 14, inner_batches=4)
+    r = ftt.abc_rejection(6, **rej)
+    dispatches = r.n_attempts // (4 << 14)
+    # one read (the accept counts) per dispatch; the rows stay on the card
+    assert _host_syncs(lambda: ftt.abc_rejection(6, **rej)) == dispatches

@@ -6,7 +6,9 @@
   tolerance 1e-10).
 - The port imports no JAX: a static walk over its sources with ``ast``.
 - The flat API is the slices' subset of fugue_tpu's.
-- Every entry point runs on the card unless the caller names a device.
+- Every entry point runs on the card unless the caller names a device; the
+  batched ``simulate_batch``/``replay_partial_batch`` run on their staged
+  model's device, which is the card unless the caller names another.
 """
 
 import ast
@@ -36,12 +38,26 @@ FLAT_API = ("sample", "observe", "factor", "guard", "Normal", "LogNormal", "stag
             "ess", "ess_multichain", "geweke", "r_hat", "rank_normalized_split_r_hat",
             "split_r_hat", "SMCConfig", "SMCResult", "adaptive_smc", "importance_reweight",
             "ChEESConfig", "ChEESResult", "CheesSession", "chees_chain", "MHResult",
-            "adaptive_mcmc_chain")
+            "adaptive_mcmc_chain", "Choice", "Trace", "ReplayHandler", "PredictiveHandler",
+            "ScoreGivenTrace", "SafeScoreGivenTrace", "SafeReplayHandler",
+            "StrictScoreGivenTrace", "ReconcileReport", "ReconcilingScoreGivenTrace",
+            "score_given_trace", "score_given_trace_safe", "score_given_trace_strict",
+            "score_given_trace_reconciled", "predictive", "posterior_predictive",
+            "VIConfig", "VIResult", "MeanFieldGuide", "FullRankGuide", "GuideError", "elbo",
+            "estimate_elbo", "optimize_meanfield_vi", "optimize_fullrank_vi", "ABCError",
+            "ABCResult", "ABCSMCConfig", "SummaryStatsDistance", "abc_rejection",
+            "abc_smc_weighted", "abc_smc", "abc_scalar_summary", "euclidean_distance",
+            "manhattan_distance")
 ENTRY_POINTS = (ftt.stage, ftt.StagedModel, ftt.hmc_chain, ftt.HmcSession, ftt.nuts_chain,
                 ftt.NutsSession, ftt.adaptive_smc, ftt.importance_reweight, ftt.chees_chain,
                 ftt.CheesSession, ftt.adaptive_mcmc_chain, interop.tensor_from_numpy,
                 interop.hmc_state_from_numpy, interop.chees_state_from_numpy,
-                interop.mh_state_from_numpy, interop.smc_state_from_numpy)
+                interop.mh_state_from_numpy, interop.smc_state_from_numpy,
+                interop.vi_params_from_numpy, ftt.predictive, ftt.optimize_meanfield_vi,
+                ftt.optimize_fullrank_vi, ftt.estimate_elbo, ftt.abc_rejection,
+                ftt.abc_smc_weighted, ftt.abc_smc, ftt.abc_scalar_summary, ftt.ReplayHandler,
+                ftt.PredictiveHandler, ftt.SafeScoreGivenTrace, ftt.ReconcilingScoreGivenTrace,
+                ftt.score_given_trace_safe, ftt.score_given_trace_reconciled)
 
 
 @pytest.fixture(autouse=True)
