@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's HMC, SMC, NUTS, ChEES, MH, VI and ABC main paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's HMC, SMC, NUTS, ChEES, MH, VI, ABC and other engines' main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py                      # all phases
     python3 chip_smoke.py --phases build,kernel
@@ -8,6 +8,8 @@
     python3 chip_smoke.py --phases build,smc_coin,smc_mixture,smc_discrete
     python3 chip_smoke.py --phases build,chees_eight_schools,chees_plate,mh_coin,mh_hierarchical
     python3 chip_smoke.py --phases build,vi_hierarchical,vi_plate,vi_scale,abc_rejection,abc_smc
+    python3 chip_smoke.py --phases logistic_scale,laplace_regression,marginal_gmm,gibbs_mixed
+    python3 chip_smoke.py --phases ess_gp,pt_bimodal,validation_conjugate,sbc_normal,mh_transdimensional
 
 Phases (each prints JSON lines; any failure raises and exits non-zero):
 
@@ -49,14 +51,16 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  + 3 logsumexp, stages - 1 resample).
 7. nuts_eight_schools  ftt.nuts_chain at bench_nuts's shape: 1024 chains,
                  NUTSConfig() (max_depth 8, target 0.8, diagonal mass),
-                 float32, 200 warmup + 200 samples; gates on split-R-hat,
-                 divergence rate and the posterior mean of mu (the HMC
-                 phase's constant: the same posterior). Reports
+                 float32, 100 warmup + 100 samples (cut from 200 + 200 when
+                 the other engines' phases joined the smoke); gates on
+                 split-R-hat, divergence rate and the posterior mean of mu
+                 (the HMC phase's constant: the same posterior). Reports
                  grad-evals/s, ESS/s, mean tree depth, the lock-step leaves
                  per transition (batch maximum) beside each chain's mean,
                  and host syncs per transition.
 8. nuts_plate    ftt.nuts_chain on the 2^20-row plate (64 chains, uniform
-                 init, 200 + 200, diagonal mass); the HMC plate's gates and
+                 init, 100 + 100, cut from 200 + 200, diagonal mass); the
+                 HMC plate's gates and
                  one kernel call per batched model run.
 9. smc_coin      ftt.adaptive_smc, float32, 131,072 particles, on the
                  Beta-Bernoulli coin flip (BASELINE config 1), with 3 MH
@@ -135,6 +139,58 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  both kernels against their plain versions on the run's own
                  2,048 log-weights (smc_kernels' tolerances).
 
+21. logistic_scale  bench_scale_logistic at full width, float32: D = 1024,
+                 N = 100,000 bf16 rows made on the card, 256 chains. The
+                 split-bf16 products return float32 within 1e-3 relative of
+                 float64 products of the same bf16 data (the fastgrad
+                 gradient, one bf16 rounding of the cotangent, within
+                 2^-8); a batched gradient is at most 3 GEMM calls at C = 1
+                 and C = 256 (counted and traced); ftt.map_estimate by
+                 L-BFGS (120 iterations) within 0.05 posterior sds of a
+                 float64 Newton point; ftt.hmc_chain from the MAP (L = 16,
+                 300 + 128): max split-R-hat over w[::16] < 1.01,
+                 divergences < 1%, mean |w_bar - w_true| / sd in [0.70,
+                 0.90], at most 3 GEMMs per model run. Reports grad-evals/s,
+                 ESS per gradient, ms, kernels and device us per gradient,
+                 the GEMMs' device us against their bound, the idle share of
+                 one transition, MAP iterations/s and host syncs.
+22. laplace_regression  examples/map_laplace.py: the ridge MAP by Adam and
+                 L-BFGS within 1e-4 of the closed form, Laplace sds within
+                 1e-4 of exact; the quadratic model's Laplace evidence beats
+                 the linear one's, whose evidence is exact to 1e-3.
+23. marginal_gmm the enumerated mixture of tests/test_marginalize.py on 12
+                 points (4,096 states) through ftt.marginalize and
+                 ftt.hmc_chain, 1024 chains, L = 16, 80 + 80 (cut from
+                 200 + 200): each labelling's chains' means within 5 MC-SE
+                 of a 2-D quadrature of that half-plane; infer_discrete's
+                 co-assignments > 0.95 within and < 0.05 across clusters.
+24. gibbs_mixed  ftt.gibbs_chain on the mixed model, 1024 chains, 200 + 300:
+                 P(heads | y) and E[mu | y] within 5 MC-SE of the closed form.
+25. ess_gp       ftt.ess_chain on the GP regression and classification of
+                 examples/gaussian_process.py, 1024 chains, 200 + 400 (cut
+                 from 300 + 1000): the regression's mean and covariance
+                 within 5 SE of the closed form, the classification's
+                 latent signs; likelihood evaluations and host reads per
+                 transition.
+26. pt_bimodal   ftt.pt_chain on examples/parallel_tempering.py's target,
+                 8 rungs x 1024 chains, L = 12, 200 + 400: P(x > 0) and E[x]
+                 within 5 MC-SE of 0.7 and 1.6; per-pair swap rates.
+27. loo_eight_schools  ftt.pointwise_log_likelihood of the eight_schools
+                 phase's draws (its own 256-chain run when that phase did
+                 not run) within 1e-5 of log N(y_j | theta_j, sigma_j),
+                 ftt.waic and ftt.psis_loo the same from the card's matrix
+                 and its CPU copy; k-hat.
+28. validation_conjugate  ftt.validate_conjugate_normal and
+                 ftt.validate_beta_bernoulli through the hmc (100 + 100),
+                 mh and smc adapters at 256 chains: each mean and variance
+                 within 5 MC-SE, the harness's own 2-SE verdict reported.
+29. sbc_normal   ftt.sbc at tests/test_sbc.py's settings: every p-value
+                 > 1e-4, and the wrong-prior control rejected.
+30. mh_transdimensional  ftt.adaptive_mcmc_chain_dynamic on
+                 examples/transdimensional.py, 1000 + 6000, the model on the
+                 card: P(b present | y) within 5 MC-SE (the indicator's
+                 ESS) of its analytic value; births, deaths, transitions/s.
+
 Then it prints the card's name and power limit, one JSON line describing
 the kernels, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -160,7 +216,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernel", "eight_schools", "gaussian_plate", "smc_kernels", "smc",
           "nuts_eight_schools", "nuts_plate", "smc_coin", "smc_mixture", "smc_discrete",
           "chees_eight_schools", "chees_plate", "mh_coin", "mh_hierarchical",
-          "vi_hierarchical", "vi_plate", "vi_scale", "abc_rejection", "abc_smc")
+          "vi_hierarchical", "vi_plate", "vi_scale", "abc_rejection", "abc_smc",
+          "logistic_scale", "laplace_regression", "marginal_gmm", "gibbs_mixed", "ess_gp",
+          "pt_bimodal", "loo_eight_schools", "validation_conjugate", "sbc_normal",
+          "mh_transdimensional")
 SOURCES = ("normal_loglik_sum", "logsumexp", "systematic_resample")
 REPLACES = {
     # _nll_fwd_kernel and _nll_bwd_kernel, one value-and-grad kernel here
@@ -571,6 +630,7 @@ def phase_eight_schools():
     check(div < 0.02, f"eight_schools divergence rate {div} >= 0.02")
     check(abs(z) < 5.0, f"eight_schools mu mean {post['mu_mean']} is {z:.2f} MC-SE "
           f"from {EIGHT_SCHOOLS_MU_MEAN}")
+    return res
 
 
 def plate_data(n):
@@ -1797,6 +1857,660 @@ def phase_abc_smc():
     return launches["equal_weight"]
 
 
+# ---------------------------------------------------------------------------
+# the other engines: MAP/Laplace and the bf16 products at d = 1024,
+# marginalization, Gibbs, elliptical slice, tempering, LOO, the validation
+# harness, SBC and trans-dimensional MH
+# ---------------------------------------------------------------------------
+
+# The card's dense bf16 tensor-core peak (NVIDIA's H100 SXM data sheet,
+# without sparsity): the operations side of the logistic row's bound.
+BF16_OPS_PER_S = 989.4e12
+LOGISTIC_SHAPE = (1024, 100_000, 256)  # bench_scale_logistic's D, N and chains
+GEMM_KERNEL = ("gemm", "nvjet", "cutlass", "xmma", "sm90_")
+
+
+def logistic_data(d, n, seed=0, device="cuda"):
+    """bench_scale_logistic's data, made on the card: X = N(0, 1)/sqrt(D)
+    in bf16, w_true ~ N(0, 1), y ~ Bernoulli(sigmoid(X w_true)) with the
+    logits in float32."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn((n, d), generator=g, device=device) / math.sqrt(d)).to(torch.bfloat16)
+    w_true = torch.randn(d, generator=g, device=device)
+    logits = x.float() @ w_true
+    y = torch.rand(n, generator=g, device=device) < torch.sigmoid(logits)
+    return x, y, w_true
+
+
+def logistic_model(x, y):
+    """w ~ Normal(0, 1) over D coefficients, y ~ BernoulliLogits(X w), the
+    product split-bf16 with the single-pass backward."""
+    import fugue_tpu_torch as ftt
+    from fugue_tpu_torch.ops.linalg import matmul_bf16x2_fastgrad
+
+    zeros = torch.zeros(x.shape[1], device=x.device)
+
+    def logistic():
+        w = ftt.sample("w", ftt.Normal(zeros, 1.0))
+        ftt.observe("y", ftt.BernoulliLogits(matmul_bf16x2_fastgrad(x, w)), y)
+
+    return logistic
+
+
+def newton_logistic(x, y, iters=12):
+    """The MAP of the logistic model in float64 on the same bf16 data, by
+    Newton's method with plain float64 products: (w, posterior sds from the
+    inverse negative Hessian, Newton steps taken)."""
+    x64, y64 = x.double(), y.double()
+    w = torch.zeros(x.shape[1], dtype=torch.float64, device=x.device)
+    eye = torch.eye(x.shape[1], dtype=torch.float64, device=x.device)
+    for it in range(iters):
+        p = torch.sigmoid(x64 @ w)
+        g = x64.T @ (y64 - p) - w
+        h = (x64 * (p * (1 - p))[:, None]).T @ x64 + eye
+        step = torch.linalg.solve(h, g)
+        w = w + step
+        if step.abs().max().item() < 1e-12:
+            break
+    p = torch.sigmoid(x64 @ w)
+    h = (x64 * (p * (1 - p))[:, None]).T @ x64 + eye
+    sd = torch.sqrt(torch.diagonal(torch.linalg.inv(h)))
+    return w, sd, it + 1
+
+
+def _gemm_events(events):
+    return [e for e in events if any(k in e.name.lower() for k in GEMM_KERNEL)]
+
+
+def phase_logistic_scale():
+    """bench_scale_logistic at full width: the split-bf16 products, a MAP
+    warm start by L-BFGS and 256 HMC chains, D = 1024, N = 100,000."""
+    import fugue_tpu_torch as ftt
+    from fugue_tpu_torch.inference.mcmc_utils import ess_multichain, split_r_hat
+    from fugue_tpu_torch.ops import linalg
+
+    d, n, c = LOGISTIC_SHAPE
+    L, n_warmup, n_samples = 16, 300, 128
+    x, y, w_true = logistic_data(d, n)
+    row = {"phase": "logistic_scale", "card": card_line(), "D": d, "N": n, "chains": c}
+
+    # the products: float32 out, value and gradient against float64 products
+    # of the same bf16 data. matmul_bf16x2 splits both directions (1e-3);
+    # the fastgrad backward rounds the cotangent to bf16 once by design, so
+    # its gradient is held to twice bf16's unit roundoff, 2^-8
+    w = torch.randn(d, generator=torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    cot = torch.rand(n, generator=torch.Generator(device="cuda").manual_seed(2), device="cuda")
+    exact = x.double() @ w.double()
+    g_exact = x.double().T @ cot.double()
+    for name, grad_tol in (("matmul_bf16x2", 1e-3), ("matmul_bf16x2_fastgrad", 2.0**-8)):
+        wg = w.clone().requires_grad_(True)
+        out = getattr(linalg, name)(x, wg)
+        check(out.dtype == torch.float32, f"logistic_scale: {name} returns {out.dtype}")
+        (g,) = torch.autograd.grad(torch.sum(cot * out), wg)
+        rel_v = ((out.double() - exact).abs().max() / exact.abs().max()).item()
+        rel_g = ((g.double() - g_exact).abs().max() / g_exact.abs().max()).item()
+        row[f"{name}_rel_err"] = rel_v
+        row[f"{name}_grad_rel_err"] = rel_g
+        check(rel_v < 1e-3 and rel_g < grad_tol, f"logistic_scale: {name} value {rel_v} / "
+              f"gradient {rel_g} off float64 by >= 1e-3 / {grad_tol}")
+
+    counted, runs = _counted(logistic_model(x, y))
+    staged = ftt.stage(counted, device="cuda")
+    grad_u = torch.func.vmap(torch.func.grad_and_value(staged.potential))
+
+    # three GEMMs per batched gradient whatever the chain count
+    for chains in (1, c):
+        q = 0.1 * torch.randn((chains, d), device="cuda")
+        grad_u(q)
+        torch.cuda.synchronize()
+        before = linalg.GEMMS["cuda"]
+        _, events = traced_kernels(lambda: grad_u(q))
+        gemms = linalg.GEMMS["cuda"] - before
+        kernels = _gemm_events(events)
+        row[f"gemm_calls_per_gradient_c{chains}"] = gemms
+        row[f"gemm_kernels_per_gradient_c{chains}"] = len(kernels)
+        check(gemms <= 3, f"logistic_scale: {gemms} GEMM calls per batched gradient at C={chains}")
+    q = 0.1 * torch.randn((c, d), device="cuda")
+    prof, events = traced_kernels(lambda: grad_u(q))
+    row["kernels_per_gradient"] = len(events)
+    row["device_us_per_gradient"] = sum(e.time_range.elapsed_us() for e in events)
+    row["gemm_device_us_per_gradient"] = sum(e.time_range.elapsed_us() for e in _gemm_events(events))
+    row["ms_per_gradient"] = median_ms(lambda: grad_u(q), reps=10)
+    bytes_x = 3 * n * d * 2  # three reads of the bf16 X
+    t_ops, t_bytes = 6 * c * n * d / BF16_OPS_PER_S, bytes_x / HBM_BYTES_PER_S
+    row["gemm_bound_us"] = 1e6 * max(t_ops, t_bytes)
+    row["gemm_bound_by"] = "operations" if t_ops > t_bytes else "bytes"
+
+    # the float64 Newton point and posterior sds on the same data
+    t0 = time.perf_counter()
+    w_newton, sd, steps = newton_logistic(x, y)
+    row.update(newton_s=time.perf_counter() - t0, newton_steps=steps)
+
+    cfg = ftt.MAPConfig(n_iterations=120, optimizer="lbfgs", n_restarts=1)
+    m, map_wall, map_syncs = _timed_syncs(lambda: ftt.map_estimate(0, staged=staged,
+                                                                   config=cfg))
+    map_z = ((m.z.double() - w_newton) / sd).abs().max().item()
+    row.update(map_wall_s=map_wall, map_iterations_per_s=cfg.n_iterations / map_wall,
+               map_host_syncs=map_syncs, map_host_syncs_counted=m.host_syncs,
+               map_grad_norm=m.grad_norm, map_max_sd_from_newton=map_z)
+    check(map_z < 0.05, f"logistic_scale: MAP {map_z} posterior sds from the Newton point")
+
+    hcfg = ftt.HMCConfig(n_leapfrog=L, target_accept=0.8)
+    runs[0] = 0
+    before = linalg.GEMMS["cuda"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ftt.hmc_chain(2, staged=staged, n_samples=n_samples, n_warmup=n_warmup, config=hcfg,
+                        n_chains=c, init_position=m.z, init_jitter=0.05)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gemms, model_runs = linalg.GEMMS["cuda"] - before, runs[0]
+    ws = res.samples["w"].double()  # (C, S, D)
+    sub = ws[:, :, ::16].permute(2, 0, 1)  # (64, C, S)
+    rhat = split_r_hat(sub).max().item()
+    ess = ess_multichain(sub)
+    div = res.divergences.float().mean().item()
+    err = ((ws.mean(dim=(0, 1)) - w_true.double()).abs() / sd).mean().item()
+    grad_evals = c * (n_warmup + n_samples) * (L + 1)
+    # one sampling transition's idle share: device time over its wall
+    q_f = res.final_positions
+
+    def one_transition():
+        return ftt.hmc_chain(3, staged=staged, n_samples=1, n_warmup=0,
+                             config=ftt.HMCConfig(n_leapfrog=L, step_size=res.step_size),
+                             n_chains=c, init_position=q_f)
+
+    one_transition()
+    t_ms = median_ms(one_transition, reps=3)
+    _, tev = traced_kernels(one_transition)
+    busy_ms = sum(e.time_range.elapsed_us() for e in tev) / 1e3
+    row.update(warmup=n_warmup, samples=n_samples, n_leapfrog=L, hmc_wall_s=wall,
+               grad_evals_per_s=grad_evals / wall,
+               ess_min=ess.min().item(), ess_median=ess.median().item(),
+               ess_per_grad=ess.min().item() / grad_evals,
+               split_rhat_max=rhat, divergence_rate=div, step_size=res.step_size,
+               mean_abs_err_in_sd=err, gemm_calls=gemms, model_runs=model_runs,
+               transition_ms=t_ms, transition_device_ms=busy_ms,
+               idle_share=1.0 - busy_ms / t_ms, dtype=str(res.samples["w"].dtype))
+    emit(row)
+    check(gemms <= 3 * model_runs, f"logistic_scale: {gemms} GEMMs in {model_runs} model runs")
+    check(rhat < 1.01, f"logistic_scale: max split-R-hat over w[::16] {rhat} >= 1.01")
+    check(div < 0.01, f"logistic_scale: divergence rate {div} >= 1%")
+    check(0.70 <= err <= 0.90, f"logistic_scale: mean |w_bar - w_true| / sd {err} "
+          "outside [0.70, 0.90] (E|Z| = 0.798)")
+
+
+def phase_laplace_regression():
+    """examples/map_laplace.py: the ridge regression by Adam and L-BFGS
+    against its closed form, and the Laplace evidence of a linear and a
+    quadratic model."""
+    import fugue_tpu_torch as ftt
+
+    rng = np.random.default_rng(42)
+    x = rng.normal(size=50)
+    y = 1.5 * x + 0.5 + rng.normal(size=50) * 0.4
+    y2 = 0.8 * x**2 - 0.2 * x + rng.normal(size=50) * 0.4
+    tau, sigma = 10.0, 0.4
+    xt, yt, y2t = (torch.tensor(v, dtype=torch.float32, device="cuda") for v in (x, y, y2))
+
+    def regression():
+        a = ftt.sample("a", ftt.Normal(0.0, tau))
+        b = ftt.sample("b", ftt.Normal(0.0, tau))
+        ftt.observe("y", ftt.Normal(a * xt + b, sigma), yt)
+
+    def linear():
+        a = ftt.sample("a", ftt.Normal(0.0, 2.0))
+        b = ftt.sample("b", ftt.Normal(0.0, 2.0))
+        ftt.observe("y", ftt.Normal(a * xt + b, sigma), y2t)
+
+    def quadratic():
+        a = ftt.sample("a", ftt.Normal(0.0, 2.0))
+        b = ftt.sample("b", ftt.Normal(0.0, 2.0))
+        c = ftt.sample("c", ftt.Normal(0.0, 2.0))
+        ftt.observe("y", ftt.Normal(c * xt**2 + a * xt + b, sigma), y2t)
+
+    A = np.stack([x, np.ones_like(x)], axis=1)
+    prec = A.T @ A / sigma**2 + np.eye(2) / tau**2
+    ridge, cov = np.linalg.solve(prec, A.T @ y / sigma**2), np.linalg.inv(prec)
+    row = {"phase": "laplace_regression", "card": card_line()}
+    for opt in ("adam", "lbfgs"):
+        t0 = time.perf_counter()
+        r = ftt.map_estimate(0, regression, ftt.MAPConfig(optimizer=opt), device="cuda")
+        la = ftt.laplace_approximation(r)
+        wall = time.perf_counter() - t0
+        err = max(abs(r.latents["a"].item() - ridge[0]), abs(r.latents["b"].item() - ridge[1]))
+        sd_err = max(abs(la.sd("a").item() - math.sqrt(cov[0, 0])),
+                     abs(la.sd("b").item() - math.sqrt(cov[1, 1])))
+        row.update({f"{opt}_map_err": err, f"{opt}_sd_err": sd_err, f"{opt}_wall_s": wall,
+                    f"{opt}_host_syncs": r.host_syncs})
+        check(err < 1e-4, f"laplace_regression: {opt} MAP {err} from the ridge solution")
+        check(sd_err < 1e-4, f"laplace_regression: {opt} Laplace sd {sd_err} from exact")
+    cfg = ftt.MAPConfig(optimizer="lbfgs")
+    lz_lin = ftt.laplace_approximation(ftt.map_estimate(1, linear, cfg, device="cuda"))
+    lz_quad = ftt.laplace_approximation(ftt.map_estimate(1, quadratic, cfg, device="cuda"))
+    cov_y = sigma**2 * np.eye(50) + 4.0 * A @ A.T
+    exact = -0.5 * (y2 @ np.linalg.solve(cov_y, y2) + np.linalg.slogdet(cov_y)[1]
+                    + 50 * math.log(2 * math.pi))
+    row.update(log_evidence_linear=lz_lin.log_evidence, log_evidence_linear_exact=exact,
+               log_evidence_quadratic=lz_quad.log_evidence)
+    emit(row)
+    check(lz_quad.log_evidence > lz_lin.log_evidence, "laplace_regression: the linear model won")
+    check(abs(lz_lin.log_evidence - exact) < 1e-3,
+          f"laplace_regression: linear log evidence {lz_lin.log_evidence} != exact {exact}")
+
+
+def gmm_data():
+    """12 points from np.random.default_rng(0): 5 from N(-2, 0.5), 7 from
+    N(2, 0.5)."""
+    rng = np.random.default_rng(0)
+    return np.concatenate([rng.normal(-2.0, 0.5, 5), rng.normal(2.0, 0.5, 7)])
+
+
+def gmm_model(data, device, dtype=torch.float32):
+    """The enumerated mixture of tests/test_marginalize.py: mu0 ~ N(-1, 3),
+    mu1 ~ N(1, 3), one Categorical(1/2, 1/2) assignment per point, y ~
+    N(mu_z, 0.5)."""
+    import fugue_tpu_torch as ftt
+
+    y = torch.tensor(data, dtype=dtype, device=device)
+
+    def gmm():
+        mus = torch.stack([ftt.sample("mu0", ftt.Normal(-1.0, 3.0)),
+                           ftt.sample("mu1", ftt.Normal(1.0, 3.0))])
+        for i in range(len(data)):
+            zi = ftt.sample(f"assign#{i:02d}", ftt.Categorical.uniform(2))
+            ftt.observe(f"y#{i:02d}", ftt.Normal(mus[zi], 0.5), y[i])
+
+    return gmm
+
+
+def gmm_quadrature(data, half, lo=-6.0, hi=6.0, m=1201):
+    """E[mu0], E[mu1] of the exact marginal posterior restricted to one
+    half-plane (``half`` +1: mu0 < mu1; -1: mu0 > mu1), by 2-D quadrature
+    in float64 on the card, and the half-plane's posterior mass."""
+    g = torch.linspace(lo, hi, m, dtype=torch.float64, device="cuda")
+    m0, m1 = torch.meshgrid(g, g, indexing="ij")
+    lp = -0.5 * ((m0 + 1.0) / 3.0) ** 2 - 0.5 * ((m1 - 1.0) / 3.0) ** 2
+    for v in data:
+        l0 = -0.5 * ((v - m0) / 0.5) ** 2
+        l1 = -0.5 * ((v - m1) / 0.5) ** 2
+        lp = lp + torch.logaddexp(l0, l1)
+    w = torch.exp(lp - lp.max())
+    mask = (m1 > m0) if half > 0 else (m1 < m0)
+    wm = w * mask
+    return ((wm * m0).sum() / wm.sum()).item(), ((wm * m1).sum() / wm.sum()).item(), \
+        (wm.sum() / w.sum()).item()
+
+
+def phase_marginal_gmm():
+    """The enumerated GMM (2^12 = 4,096 states) through marginalize and
+    HMC, 1024 chains, then infer_discrete's co-assignments."""
+    import fugue_tpu_torch as ftt
+
+    data = gmm_data()
+    n_chains, n_warmup, n_samples, L = 1024, 80, 80, 16  # cut from 200 + 200
+    marg = ftt.marginalize(gmm_model(data, "cuda"), device="cuda")
+    check(marg.n_states == 4096, f"marginal_gmm: {marg.n_states} states, want 4096")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ftt.hmc_chain(0, staged=marg, n_samples=n_samples, n_warmup=n_warmup,
+                        n_chains=n_chains, config=ftt.HMCConfig(n_leapfrog=L))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mu0, mu1 = res.samples["mu0"].double(), res.samples["mu1"].double()
+    # HMC does not cross between the two labellings: hold each chain's
+    # draws to the quadrature of its own half-plane
+    order = torch.sign((mu1 - mu0).mean(dim=1))
+    row = {"phase": "marginal_gmm", "card": card_line(), "chains": n_chains, "states": 4096,
+           "warmup": n_warmup, "samples": n_samples, "n_leapfrog": L, "wall_s": wall,
+           "grad_evals_per_s": n_chains * (n_warmup + n_samples) * (L + 1) / wall,
+           "divergence_rate": res.divergences.float().mean().item()}
+    for half, name in ((1.0, "ordered"), (-1.0, "swapped")):
+        sel = order == half
+        k = int(sel.sum().item())
+        e0, e1, mass = gmm_quadrature(data, half)
+        row[f"{name}_chains"], row[f"{name}_mass_exact"] = k, mass
+        if k < 8:
+            continue
+        for v, want, site in ((mu0[sel], e0, "mu0"), (mu1[sel], e1, "mu1")):
+            row[f"{name}_{site}"] = _moment_gate(v, want, f"marginal_gmm {name} {site}")
+    check(row["ordered_chains"] >= 8, "marginal_gmm: fewer than 8 chains in the ordered mode")
+    # the discrete posterior: co-assignment of the points over 4,096 draws
+    last = {a: v[:, -4:] for a, v in res.samples.items()}
+    zs = marg.infer_discrete(5, last)
+    lab = torch.stack([zs[f"assign#{i:02d}"].reshape(-1) for i in range(12)], dim=1)
+    co = (lab[:, :, None] == lab[:, None, :]).double().mean(0)  # (12, 12)
+    first, second = slice(0, 5), slice(5, 12)
+    within = torch.cat([co[first, first].reshape(-1), co[second, second].reshape(-1)]).min()
+    across = co[first, second].max()
+    row.update(coassign_within_min=within.item(), coassign_across_max=across.item())
+    emit(row)
+    check(within.item() > 0.95, f"marginal_gmm: co-assignment within a cluster {within.item()}")
+    check(across.item() < 0.05, f"marginal_gmm: co-assignment across clusters {across.item()}")
+
+
+def _moment_gate(x, want, what):
+    """x's mean within 5 MC-SE (multi-chain ESS) of ``want``: the z."""
+    from fugue_tpu_torch.inference.mcmc_utils import ess_multichain
+
+    x = x.double()
+    ess = ess_multichain(x).item()
+    se = x.std().item() / math.sqrt(max(ess, 1.0))
+    z = (x.mean().item() - want) / se
+    check(abs(z) < 5.0, f"{what}: mean {x.mean().item()} is {z:.2f} MC-SE from {want}")
+    return {"mean": x.mean().item(), "exact": want, "z": z, "ess": ess}
+
+
+def phase_gibbs_mixed():
+    """HMC-within-Gibbs on the mixed model of examples/discrete_models.py,
+    1024 chains."""
+    import fugue_tpu_torch as ftt
+
+    n_chains, n_warmup, n_samples = 1024, 200, 300
+    staged = ftt.stage(mixed_discrete_model("cuda"), device="cuda")
+    res, wall, syncs = _timed_syncs(lambda: ftt.gibbs_chain(
+        0, staged=staged, n_samples=n_samples, n_warmup=n_warmup, n_chains=n_chains))
+    _, p_heads = mixed_discrete_exact()
+    mean_mu = p_heads * (1.0 + 8.0) / 9.0 + (1.0 - p_heads) * (-1.0 + 8.0) / 9.0
+    row = {"phase": "gibbs_mixed", "card": card_line(), "chains": n_chains,
+           "warmup": n_warmup, "samples": n_samples, "wall_s": wall,
+           "sweeps_per_s": n_chains * (n_warmup + n_samples) / wall, "host_syncs": syncs,
+           "step_size": res.step_size, "accept_hmc": res.accept_prob_hmc.mean().item(),
+           "accept_discrete": res.accept_rate_discrete.item(),
+           "heads": _moment_gate(res.samples["heads"], p_heads, "gibbs_mixed P(heads)"),
+           "mu": _moment_gate(res.samples["mu"], mean_mu, "gibbs_mixed E[mu]")}
+    emit(row)
+
+
+def gp_data():
+    """examples/gaussian_process.py's inputs: six points on [0, 1], an RBF
+    kernel (length 0.4, jitter 1e-6), noise 0.3, y = sin(2 pi x) + noise
+    from np.random.default_rng(0), and the class labels."""
+    xg = np.linspace(0.0, 1.0, 6)
+    k = np.exp(-0.5 * ((xg[:, None] - xg[None, :]) / 0.4) ** 2) + 1e-6 * np.eye(6)
+    y = np.sin(2 * np.pi * xg) + np.random.default_rng(0).normal(0, 0.3, 6)
+    return k, y, np.array([True, True, True, False, False, False])
+
+
+def phase_ess_gp():
+    """Elliptical slice sampling on the GP regression (against its closed
+    form) and the GP classification, 1024 chains."""
+    import fugue_tpu_torch as ftt
+    from fugue_tpu_torch.inference.mcmc_utils import ess_multichain
+
+    n_chains, n_warmup, n_samples = 1024, 300, 1000
+    k, y, labels = gp_data()
+    kt = torch.tensor(k, dtype=torch.float32, device="cuda")
+    yt = torch.tensor(y, dtype=torch.float32, device="cuda")
+    lt = torch.tensor(labels, device="cuda")
+    zeros = torch.zeros(6, device="cuda")
+
+    def regression():
+        f = ftt.sample("f", ftt.MultivariateNormal(zeros, kt))
+        ftt.observe("y", ftt.Normal(f, 0.3), yt)
+
+    def classification():
+        f = ftt.sample("f", ftt.MultivariateNormal(zeros, kt))
+        ftt.observe("y", ftt.Bernoulli(torch.sigmoid(3.0 * f)), lt)
+
+    row = {"phase": "ess_gp", "card": card_line(), "chains": n_chains, "warmup": n_warmup,
+           "samples": n_samples}
+    n_t = n_warmup + n_samples
+    for name, model in (("regression", regression), ("classification", classification)):
+        res, wall, syncs = _timed_syncs(lambda: ftt.ess_chain(
+            0, model, n_samples=n_samples, n_warmup=n_warmup, n_chains=n_chains,
+            device="cuda"))
+        row[name] = {"wall_s": wall, "transitions_per_s": n_chains * n_t / wall,
+                     "likelihood_evals_per_transition": res.mean_shrink_iters,
+                     "host_reads_per_transition": res.host_reads / n_t,
+                     "host_syncs_per_transition": syncs / n_t}
+        fs = res.samples["f"].double()  # (C, S, 6)
+        if name == "regression":
+            a = k @ np.linalg.inv(k + 0.09 * np.eye(6))
+            mean, cov = a @ y, k - a @ k
+            ess = ess_multichain(fs.permute(2, 0, 1))
+            flat = fs.reshape(-1, 6)
+            got_mean = flat.mean(0).cpu().numpy()
+            got_cov = torch.cov(flat.T).cpu().numpy()
+            e = ess.cpu().numpy()
+            z_mean = (got_mean - mean) / np.sqrt(np.diag(cov) / e)
+            # the standard error of a covariance entry: sqrt((s_ii s_jj + s_ij^2) / ESS)
+            d = np.diag(cov)
+            se_cov = np.sqrt((np.outer(d, d) + cov**2) / e.min())
+            z_cov = (got_cov - cov) / se_cov
+            row[name].update(max_mean_z=float(np.abs(z_mean).max()),
+                             max_cov_z=float(np.abs(z_cov).max()), ess_min=float(e.min()))
+            check(np.abs(z_mean).max() < 5.0, f"ess_gp: regression mean {z_mean} MC-SE off")
+            check(np.abs(z_cov).max() < 5.0, f"ess_gp: regression covariance {z_cov} SE off")
+        else:
+            m = fs.reshape(-1, 6).mean(0).cpu().numpy()
+            row[name]["latent_means"] = m.tolist()
+            check(m[0] > 0.15 and m[-1] < -0.15, f"ess_gp: classification latent means {m}")
+    emit(row)
+
+
+def bimodal_model():
+    """examples/parallel_tempering.py: x ~ 0.3 N(-4, 0.4) + 0.7 N(4, 0.4),
+    scored as a factor over a broad N(0, 10) instrumental prior."""
+    import fugue_tpu_torch as ftt
+
+    def bimodal():
+        x = ftt.sample("x", ftt.Normal(0.0, 10.0))
+        mix = torch.logaddexp(math.log(0.3) + ftt.Normal(-4.0, 0.4).log_prob(x),
+                              math.log(0.7) + ftt.Normal(4.0, 0.4).log_prob(x))
+        ftt.factor(mix - ftt.Normal(0.0, 10.0).log_prob(x))
+        return x
+
+    return bimodal
+
+
+def phase_pt_bimodal():
+    """Parallel tempering on the bimodal target, 1024 chains x 8 rungs."""
+    import fugue_tpu_torch as ftt
+
+    n_chains, n_warmup, n_samples = 1024, 200, 400
+    cfg = ftt.PTConfig(n_temps=8, beta_min=0.02, n_leapfrog=12)
+    res, wall, syncs = _timed_syncs(lambda: ftt.pt_chain(
+        0, bimodal_model(), n_samples=n_samples, n_warmup=n_warmup, config=cfg,
+        n_chains=n_chains, device="cuda"))
+    x = res.samples["x"]
+    n_rep = cfg.n_temps * n_chains
+    row = {"phase": "pt_bimodal", "card": card_line(), "chains": n_chains,
+           "replicas": n_rep, "warmup": n_warmup, "samples": n_samples, "wall_s": wall,
+           "grad_evals_per_s": n_rep * (n_warmup + n_samples) * (cfg.n_leapfrog + 1) / wall,
+           "host_syncs": syncs, "swap_rate": res.swap_rate.tolist(),
+           "step_size": res.step_size.tolist(), "accept_prob": res.accept_prob.tolist(),
+           "p_right": _moment_gate((x > 0).double(), 0.7, "pt_bimodal P(x > 0)"),
+           "mean": _moment_gate(x, 1.6, "pt_bimodal E[x]")}
+    emit(row)
+
+
+def phase_loo_eight_schools(hmc_result=None):
+    """The pointwise log-likelihood, WAIC and PSIS-LOO of an eight-schools
+    HMC run's draws (the eight_schools phase's, when it ran)."""
+    import fugue_tpu_torch as ftt
+
+    staged = ftt.stage(eight_schools_model("cuda"), device="cuda")
+    if hmc_result is None:
+        hmc_result = ftt.hmc_chain(1, staged=staged, n_samples=100, n_warmup=100,
+                                   config=ftt.HMCConfig(n_leapfrog=32, target_accept=0.9),
+                                   n_chains=256)
+    s = hmc_result.samples
+    ll, wall, syncs = _timed_syncs(lambda: ftt.pointwise_log_likelihood(s, staged=staged))
+    y = torch.tensor([28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0], dtype=torch.float64)
+    sig = torch.tensor([15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0], dtype=torch.float64)
+    theta = (s["mu"][..., None] + s["tau"][..., None] * s["theta_raw"]).double().cpu()
+    direct = (-0.5 * ((y - theta) / sig) ** 2 - torch.log(sig)
+              - 0.5 * math.log(2 * math.pi)).reshape(-1, 8)
+    err = (ll.double().cpu() - direct).abs().max().item()
+    card_waic, cpu_waic = ftt.waic(ll), ftt.waic(ll.cpu())
+    card_loo, cpu_loo = ftt.psis_loo(ll), ftt.psis_loo(ll.cpu())
+    row = {"phase": "loo_eight_schools", "card": card_line(), "draws": ll.shape[0],
+           "observations": ll.shape[1], "pointwise_wall_s": wall, "pointwise_host_syncs": syncs,
+           "max_abs_err": err, "waic_elpd": card_waic.elpd, "waic_elpd_cpu": cpu_waic.elpd,
+           "loo_elpd": card_loo.elpd, "loo_elpd_cpu": cpu_loo.elpd, "loo_se": card_loo.se,
+           "p_eff": card_loo.p_eff, "pareto_k": card_loo.pareto_k.tolist(),
+           "pareto_k_max": float(card_loo.pareto_k.max())}
+    emit(row)
+    check(ll.shape == (direct.shape[0], 8) and ll.device.type == "cuda",
+          f"loo_eight_schools: matrix {tuple(ll.shape)} on {ll.device}")
+    check(err < 1e-5, f"loo_eight_schools: matrix {err} from the direct log-densities")
+    for a, b, what in ((card_waic.elpd, cpu_waic.elpd, "waic"), (card_loo.elpd, cpu_loo.elpd,
+                                                                 "loo")):
+        check(abs(a - b) <= 1e-9 * max(1.0, abs(b)), f"loo_eight_schools: {what} elpd {a} "
+              f"from the card's matrix, {b} from its CPU copy")
+
+
+def phase_validation_conjugate():
+    """The conjugate harnesses through the hmc, mh and smc adapters at
+    256 chains, each moment gated at 5 MC-SE from the result's own fields.
+    The smc adapter runs adaptive_smc on 256 x 1,500 = 384,000 particles
+    and a terminal systematic resample: both SMC kernels are on this path.
+    Their launches are counted per run (4 * stages + 3 logsumexp, stages
+    resamples), and both are then held against their plain versions on
+    each run's own 384,000 log-weights. Returns the smc runs' launches."""
+    import fugue_tpu_torch as ftt
+    from fugue_tpu_torch.inference import smc as smc_mod
+    from fugue_tpu_torch.ops import kernels as K
+
+    runs = []  # the smc adapter's adaptive_smc results, recorded as they return
+    real_adaptive_smc = smc_mod.adaptive_smc
+
+    def recording_adaptive_smc(*args, **kwargs):
+        res = real_adaptive_smc(*args, **kwargs)
+        runs.append(res)
+        return res
+
+    row = {"phase": "validation_conjugate", "card": card_line()}
+    launches = {"lse": 0, "resample": 0}
+    smc_mod.adaptive_smc = recording_adaptive_smc
+    try:
+        for sampler in ("hmc", "mh", "smc"):
+            cut = dict(n_samples=100, n_warmup=100) if sampler == "hmc" else {}
+            for name, fn, cfg in (
+                    ("normal", ftt.validate_conjugate_normal,
+                     ftt.ConjugateNormalConfig(n_chains=256, **cut)),
+                    ("beta_bernoulli", ftt.validate_beta_bernoulli,
+                     ftt.ConjugateBetaBernoulliConfig(n_chains=256, **cut))):
+                torch.cuda.synchronize()
+                for k in K.LAUNCHES:
+                    K.LAUNCHES[k] = 0
+                r, wall, _ = _timed_syncs(lambda: fn(0, sampler, cfg, device="cuda"))
+                got = dict(K.LAUNCHES)
+                se_mean = math.sqrt(r.expected_var / r.ess)
+                se_var = r.expected_var * math.sqrt(2.0 / max(r.ess - 1.0, 1.0))
+                z_mean = (r.observed_mean - r.expected_mean) / se_mean
+                z_var = (r.observed_var - r.expected_var) / se_var
+                row[f"{sampler}_{name}"] = {"wall_s": wall, "draws": r.n_draws, "ess": r.ess,
+                                            "z_mean": z_mean, "z_var": z_var,
+                                            "harness_2se_passed": bool(r.passed),
+                                            "checks": {k: bool(v) for k, v in r.checks.items()},
+                                            "launches": got}
+                check(abs(z_mean) < 5.0 and abs(z_var) < 5.0,
+                      f"validation_conjugate {sampler} {name}: mean {z_mean:.2f}, variance "
+                      f"{z_var:.2f} MC-SE from the closed form")
+                if sampler != "smc":
+                    check(got["lse"] == got["resample"] == 0,
+                          f"validation_conjugate {sampler} {name}: SMC kernel launches {got}")
+                    continue
+                res = runs[-1]
+                s = res.n_stages
+                row[f"{sampler}_{name}"].update(particles=res.log_weights.numel(), stages=s)
+                # adaptive_smc's 4 * stages + 3 logsumexp and stages - 1
+                # resamples, and the adapter's terminal resample
+                check(got["lse"] == 4 * s + 3 and got["resample"] == s,
+                      f"validation_conjugate smc {name}: launches {got}, want {4 * s + 3} "
+                      f"logsumexp, {s} resample for {s} stages")
+                _add_launches(launches, got)
+    finally:
+        smc_mod.adaptive_smc = real_adaptive_smc
+    emit(row)
+    # both kernels against their plain versions on each smc run's own
+    # 384,000 log-weights (these launches come after the counts were read)
+    kernel_rows = {}
+    for name, res in zip(("normal", "beta_bernoulli"), runs):
+        lw = res.log_weights.float()
+        check(lw.numel() == 256 * 1500, f"validation_conjugate smc {name}: {lw.numel()} particles")
+        kernel_rows[name] = {
+            "logsumexp": _lse_f32_check(lw, f"validation_conjugate {name} logsumexp"),
+            "systematic_resample": [
+                _resample_f32_contract(lw, lw.double().cpu().numpy(), u0v,
+                                       f"validation_conjugate {name} resample u0={u0v}")
+                for u0v in (0.37, 0.0, 1.0 - 2.0**-24)]}
+    emit({"phase": "validation_conjugate", "kernels_vs_plain_on_the_run_weights": kernel_rows})
+    return launches
+
+
+def phase_sbc_normal():
+    """SBC at tests/test_sbc.py's settings (96 datasets, 63 draws, thin 4,
+    200 warmup), and its wrong-prior control."""
+    import fugue_tpu_torch as ftt
+
+    def model(data):
+        mu = ftt.sample("mu", ftt.Normal(0.0, 1.0))
+        sig = ftt.sample("sig", ftt.LogNormal(0.0, 0.5))
+        ftt.observe("y", ftt.Normal(mu, sig), data["y"])
+
+    def wrong(data):
+        mu = ftt.sample("mu", ftt.Normal(3.0, 0.3))
+        sig = ftt.sample("sig", ftt.LogNormal(0.0, 0.5))
+        ftt.observe("y", ftt.Normal(mu, sig), data["y"])
+
+    kw = dict(n_datasets=96, n_posterior=63, n_warmup=200, thin=4, device="cuda")
+    r, wall, syncs = _timed_syncs(lambda: ftt.sbc(0, model, {"y": np.zeros(8)}, **kw))
+    bad, bad_wall, _ = _timed_syncs(lambda: ftt.sbc(1, model, {"y": np.zeros(8)},
+                                                    inference_model_fn=wrong, **kw))
+    row = {"phase": "sbc_normal", "card": card_line(), "datasets": 96, "posterior_draws": 63,
+           "thin": 4, "warmup": 200, "wall_s": wall, "host_syncs": syncs,
+           "p_values": r.p_values.tolist(), "chi2": r.chi2.tolist(), "passed": r.passed,
+           "control_wall_s": bad_wall, "control_p_values": bad.p_values.tolist(),
+           "control_passed": bad.passed}
+    emit(row)
+    check(float(r.p_values.min()) > 1e-4, f"sbc_normal: p-values {r.p_values} (want > 1e-4)")
+    check(not bad.passed and float(bad.p_values.min()) < 1e-4,
+          f"sbc_normal: the wrong-prior control was not rejected ({bad.p_values})")
+
+
+def phase_mh_transdimensional():
+    """examples/transdimensional.py: trans-dimensional MH, 1000 + 6000, the
+    model on the card; P(b present | y) against its analytic value."""
+    import fugue_tpu_torch as ftt
+    from fugue_tpu_torch.inference.mcmc_utils import ess
+
+    y_obs = torch.tensor(2.4, device="cuda")
+
+    def model():
+        use_b = ftt.sample("use_b", ftt.Bernoulli(0.3))
+        a = ftt.sample("a", ftt.Normal(0.0, 1.0))
+        mean = a + ftt.sample("b", ftt.Normal(0.0, 1.0)) if bool(use_b) else a
+        ftt.observe("y", ftt.Normal(mean, 0.5), y_obs)
+        return mean
+
+    n_warmup, n_samples = 1000, 6000
+    res, wall, syncs = _timed_syncs(lambda: ftt.adaptive_mcmc_chain_dynamic(
+        0, model, n_samples=n_samples, n_warmup=n_warmup, device="cuda"))
+
+    def pdf(v, var):
+        return math.exp(-0.5 * v * v / var) / math.sqrt(2 * math.pi * var)
+
+    z0, z1 = pdf(2.4, 1.25), pdf(2.4, 2.25)
+    exact = 0.3 * z1 / (0.3 * z1 + 0.7 * z0)
+    present = torch.tensor(res.presence("b"), dtype=torch.float64)
+    e = ess(present).item()
+    se = math.sqrt(exact * (1 - exact) / max(e, 1.0))
+    z = (present.mean().item() - exact) / se
+    row = {"phase": "mh_transdimensional", "card": card_line(), "warmup": n_warmup,
+           "samples": n_samples, "wall_s": wall,
+           "transitions_per_s": (n_warmup + n_samples) / wall,
+           "host_syncs_per_transition": syncs / (n_warmup + n_samples),
+           "births": res.birth_count, "deaths": res.death_count,
+           "accept_rate": res.accept_rate, "p_present": present.mean().item(),
+           "exact": exact, "ess": e, "z": z}
+    emit(row)
+    check(abs(z) < 5.0, f"mh_transdimensional: P(b present) {present.mean().item()} is "
+          f"{z:.2f} MC-SE from {exact}")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1819,13 +2533,14 @@ def main(argv=None) -> int:
     import fugue_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     kernel_rows = launches = smc_rows = nuts_launches = chees_launches = vi_launches = None
+    eight_schools_run = None
     smc_launches = {"lse": 0, "resample": 0}
     if "build" in phases:
         phase_build()
     if "kernel" in phases:
         kernel_rows = phase_kernel()
     if "eight_schools" in phases:
-        phase_eight_schools()
+        eight_schools_run = phase_eight_schools()
     if "gaussian_plate" in phases:
         launches = phase_gaussian_plate()
     if "smc_kernels" in phases:
@@ -1858,6 +2573,21 @@ def main(argv=None) -> int:
         phase_abc_rejection()
     if "abc_smc" in phases:
         _add_launches(smc_launches, phase_abc_smc())
+    for name, phase in (("logistic_scale", phase_logistic_scale),
+                        ("laplace_regression", phase_laplace_regression),
+                        ("marginal_gmm", phase_marginal_gmm), ("gibbs_mixed", phase_gibbs_mixed),
+                        ("ess_gp", phase_ess_gp), ("pt_bimodal", phase_pt_bimodal)):
+        if name in phases:
+            phase()
+    if "loo_eight_schools" in phases:
+        phase_loo_eight_schools(eight_schools_run)
+    eight_schools_run = None
+    if "validation_conjugate" in phases:
+        _add_launches(smc_launches, phase_validation_conjugate())
+    for name, phase in (("sbc_normal", phase_sbc_normal),
+                        ("mh_transdimensional", phase_mh_transdimensional)):
+        if name in phases:
+            phase()
 
     print(card_line(), flush=True)
     if set(phases) != set(PHASES):
@@ -1877,8 +2607,9 @@ def main(argv=None) -> int:
               kernel_rows[MAIN_SHAPE],
               launches["nll"] + nuts_launches["nll"] + chees_launches["nll"]
               + vi_launches["nll"]),
-        # the SMC kernels' calls on their six paths: the smc phase's three
-        # runs, the coin (two runs), mixture and discrete phases, and abc_smc
+        # the SMC kernels' calls on their seven paths: the smc phase's three
+        # runs, the coin (two runs), mixture and discrete phases, abc_smc and
+        # the validation harness's smc adapter (two runs)
         entry("logsumexp", "lse", "logsumexp", smc_rows[("lse", N_PARTICLES)],
               smc_launches["lse"]),
         entry("systematic_resample", "resample", "systematic_resample",

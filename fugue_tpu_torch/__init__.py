@@ -20,7 +20,15 @@ batch, with ``CheesSession``. Adaptive single-site MH over a chain batch
 and SGD rules (``optimize_meanfield_vi``, ``optimize_fullrank_vi``), ABC
 rejection and ABC-SMC (``abc_rejection``, ``abc_smc_weighted``,
 ``abc_smc``), predictive sampling (``predictive``), and the replay, score,
-safe, strict and reconciling handlers.
+safe, strict and reconciling handlers. The other engines: MAP and the
+Laplace approximation (``map_estimate``, ``laplace_approximation``), exact
+marginalization of enumerable discrete sites (``marginalize``),
+HMC-within-Gibbs (``gibbs_chain``), elliptical slice sampling
+(``ess_chain``), parallel tempering (``pt_chain``), WAIC and PSIS-LOO
+(``pointwise_log_likelihood``, ``waic``, ``psis_loo``), the conjugate
+validation harness, simulation-based calibration (``sbc``) and
+trans-dimensional MH (``adaptive_mcmc_chain_dynamic``); and the bf16
+design-matrix products of ``ops.linalg`` (``matmul_bf16x2_fastgrad``).
 Entry points run on the card (``device="cuda"``) unless the caller names
 another device. Module paths and public names mirror ``fugue_tpu``. The
 package imports no JAX.
@@ -105,6 +113,34 @@ from .inference.abc import (
     manhattan_distance,
 )
 from .inference.chees import ChEESConfig, ChEESResult, CheesSession, chees_chain
+from .inference.ess import ESSConfig, ESSResult, ess_chain
+from .inference.gibbs import GibbsResult, gibbs_chain
+from .inference.map_laplace import (
+    LaplaceResult,
+    MAPConfig,
+    MAPResult,
+    laplace_approximation,
+    map_estimate,
+)
+from .inference.marginalize import MarginalizedModel, marginalize
+from .inference.mh_dynamic import DynamicMHResult, adaptive_mcmc_chain_dynamic
+from .inference.model_comparison import (
+    ELPDResult,
+    compare,
+    pointwise_log_likelihood,
+    psis_loo,
+    waic,
+)
+from .inference.sbc import SBCResult, sbc
+from .inference.tempering import PTConfig, PTResult, geometric_ladder, pt_chain
+from .inference.validation import (
+    ConjugateBetaBernoulliConfig,
+    ConjugateNormalConfig,
+    ValidationResult,
+    ks_two_sample,
+    validate_beta_bernoulli,
+    validate_conjugate_normal,
+)
 from .inference.diagnostics import ParameterSummary, print_diagnostics, summarize_samples
 from .inference.hmc import HMCConfig, HMCResult, HmcSession, hmc_chain, hmc_transition
 from .inference.mcmc_utils import (

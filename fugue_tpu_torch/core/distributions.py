@@ -160,9 +160,28 @@ def _log_beta(a, b):
 
 class Distribution:
     """Base distribution interface; scalar event shape unless a subclass
-    says otherwise (Dirichlet, MultivariateNormal)."""
+    says otherwise (Dirichlet, MultivariateNormal).
+
+    A parameter given as a numpy array (or list) is a CPU tensor when the
+    distribution is built; ``sample`` and ``log_prob`` first move such
+    tensors to the device of the generator or the value
+    (``_follow``), so a model written with numpy data runs on the card."""
 
     support: Support = REAL
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        for name in ("sample", "log_prob"):
+            fn = cls.__dict__.get(name)
+            if fn is not None and not getattr(fn, "_follows", False):
+                setattr(cls, name, _following(fn, name))
+
+    def _follow(self, device) -> None:
+        """Move every tensor attribute that lies on the CPU to ``device``,
+        an accelerator (once: the moved tensor replaces it)."""
+        for k, v in vars(self).items():
+            if isinstance(v, torch.Tensor) and v.device.type == "cpu":
+                setattr(self, k, v.to(device))
 
     def _params(self):
         return ()
@@ -234,6 +253,21 @@ class Distribution:
     def __repr__(self):
         params = ", ".join(f"{v}" for v in self._params())
         return f"{type(self).__name__}({params})"
+
+
+def _following(fn, name):
+    """``fn`` (a ``sample`` or ``log_prob``) preceded by ``_follow`` to the
+    generator's device, or to the value's when it is a tensor."""
+
+    @functools.wraps(fn)
+    def wrapped(self, first, *args, **kwargs):
+        device = getattr(first, "device", None)
+        if isinstance(first, (torch.Tensor, torch.Generator)) and device.type != "cpu":
+            self._follow(device)
+        return fn(self, first, *args, **kwargs)
+
+    wrapped._follows = True
+    return wrapped
 
 
 def _where_inside(inside, lp):
@@ -708,9 +742,10 @@ class Categorical(Distribution):
         self.support = categorical_support(int(_shape(self._params()[0])[-1]))
 
     @staticmethod
-    def uniform(k: int, device="cpu") -> "Categorical":
-        return Categorical(probs=torch.full((k,), 1.0 / k, dtype=settings.real_dtype(),
-                                            device=device))
+    def uniform(k: int) -> "Categorical":
+        """Equal probabilities over k categories; the table is made on the
+        device of the first generator or value it meets."""
+        return Categorical(probs=torch.full((k,), 1.0 / k, dtype=settings.real_dtype()))
 
     @property
     def logits(self):

@@ -128,28 +128,34 @@ class WelfordState:
     m2: Any  # (d,) elementwise squares, or (d, d) outer products (dense)
 
     @staticmethod
-    def init(dim: int, dense: bool = False, *, dtype, device) -> "WelfordState":
+    def init(dim: int, dense: bool = False, *, dtype, device,
+             chains: Optional[int] = None) -> "WelfordState":
+        """Moments pooled over chains, or with ``chains`` one set per chain
+        (a leading (chains,) dim)."""
+        lead = () if chains is None else (chains,)
         return WelfordState(
             count=0.0,
-            mean=torch.zeros((dim,), dtype=dtype, device=device),
-            m2=torch.zeros((dim, dim) if dense else (dim,), dtype=dtype, device=device),
+            mean=torch.zeros(lead + (dim,), dtype=dtype, device=device),
+            m2=torch.zeros(lead + ((dim, dim) if dense else (dim,)), dtype=dtype,
+                           device=device),
         )
 
 
 def welford_push_batch(state: WelfordState, batch) -> WelfordState:
     """Fold a (n_chains, d) batch of positions into the moments (Chan
-    parallel update)."""
-    n_b = float(batch.shape[0])
-    mean_b = torch.mean(batch, dim=0)
-    centered = batch - mean_b
+    parallel update); per-chain moments take a (chains, 1, d) batch."""
+    n_b = float(batch.shape[-2])
+    mean_b = torch.mean(batch, dim=-2)
+    centered = batch - mean_b.unsqueeze(-2)
     n_new = state.count + n_b
     delta = mean_b - state.mean
     mean_new = state.mean + delta * (n_b / n_new)
     w = state.count * n_b / n_new
-    if state.m2.dim() == 2:
-        m2_new = state.m2 + centered.T @ centered + w * torch.outer(delta, delta)
+    if state.m2.dim() > state.mean.dim():
+        m2_new = (state.m2 + centered.mT @ centered
+                  + w * (delta.unsqueeze(-1) * delta.unsqueeze(-2)))
     else:
-        m2_new = state.m2 + torch.sum(centered**2, dim=0) + w * delta**2
+        m2_new = state.m2 + torch.sum(centered**2, dim=-2) + w * delta**2
     return WelfordState(count=n_new, mean=mean_new, m2=m2_new)
 
 
@@ -165,7 +171,7 @@ def welford_covariance(state: WelfordState, regularize: bool = True):
     """Dense covariance estimate with Stan-style shrinkage toward a scaled
     identity (keeps the mass matrix positive definite at small counts)."""
     cov = state.m2 / max(state.count - 1.0, 1.0)
-    eye = torch.eye(cov.shape[0], dtype=cov.dtype, device=cov.device)
+    eye = torch.eye(cov.shape[-1], dtype=cov.dtype, device=cov.device)
     if regularize:
         n = state.count
         cov = (n / (n + 5.0)) * cov + 1e-3 * (5.0 / (n + 5.0)) * eye
@@ -174,15 +180,18 @@ def welford_covariance(state: WelfordState, regularize: bool = True):
 
 # ---------------------------------------------------------------------------
 # Mass algebra: ``inv_mass`` is a (d,) vector (diagonal) or a (d, d)
-# covariance estimate Σ (dense). Velocity = Σp, kinetic = ½ pᵀΣp, momentum
+# covariance estimate Σ (dense), shared by the chains, or (C, d, d), one Σ
+# per chain of (C, d) momenta. Velocity = Σp, kinetic = ½ pᵀΣp, momentum
 # ~ N(0, Σ⁻¹) drawn through the Cholesky factor of Σ.
 # ---------------------------------------------------------------------------
 
 
 def mass_velocity(inv_mass, p):
-    """Σp for momenta ``p`` of shape (..., d)."""
+    """Σp for momenta ``p`` of shape (..., d), or (C, d) with one Σ per chain."""
     if inv_mass.dim() == 1:
         return inv_mass * p
+    if inv_mass.dim() == 3:
+        return (p.unsqueeze(-2) @ inv_mass).squeeze(-2)
     return p @ inv_mass  # (Σp)ᵀ = pᵀΣ: Σ is symmetric
 
 
@@ -201,6 +210,9 @@ def momentum_from_normal(inv_mass, z):
     if inv_mass.dim() == 1:
         return z / torch.sqrt(inv_mass)
     chol, info = torch.linalg.cholesky_ex(inv_mass)
+    if inv_mass.dim() == 3:  # one Σ per chain of (C, d) draws
+        p = torch.linalg.solve_triangular(chol, z.unsqueeze(-2), upper=False, left=False)
+        return torch.where((info == 0)[:, None], p.squeeze(-2), torch.nan)
     d = inv_mass.shape[0]
     p = torch.linalg.solve_triangular(chol, z.reshape(-1, d), upper=False, left=False)
     return torch.where(info == 0, p, torch.nan).reshape(z.shape)
@@ -213,8 +225,11 @@ def mass_draw_momentum(generator: torch.Generator, inv_mass, shape):
     return momentum_from_normal(inv_mass, z)
 
 
-def identity_mass(d: int, dense: bool, *, dtype, device):
-    """The unit mass: eye(d) (dense) or ones(d) (diagonal)."""
+def identity_mass(d: int, dense: bool, *, dtype, device, chains: Optional[int] = None):
+    """The unit mass: eye(d) (dense) or ones(d) (diagonal); with ``chains``,
+    one eye(d) per chain."""
+    if chains is not None:
+        return torch.eye(d, dtype=dtype, device=device).expand(chains, d, d).clone()
     if dense:
         return torch.eye(d, dtype=dtype, device=device)
     return torch.ones((d,), dtype=dtype, device=device)
@@ -297,15 +312,20 @@ def hmc_transition(
     n_leapfrog: int,
     inv_mass,
     max_delta_energy: float = 1000.0,
+    force_fn: Optional[Callable] = None,
 ):
     """One HMC proposal + MH correction for a batch of chains.
 
     ``q``, ``p``: (C, d) positions and momenta; ``log_u``: (C,) log-uniforms
     for the accept test; ``eps``: (C,) step sizes (after jitter) or a
     scalar. Divergences (non-finite energy or |ΔH| > threshold) are always
-    rejected. Returns ``(q_out, HmcStepInfo)``.
+    rejected. ``force_fn`` ((C, d) → (∇U, U)) replaces
+    ``batched_force(potential_fn)`` where each chain's potential takes
+    arguments of its own (Gibbs's discrete values, tempering's β). Returns
+    ``(q_out, HmcStepInfo)``.
     """
-    force_fn = batched_force(potential_fn)
+    if force_fn is None:
+        force_fn = batched_force(potential_fn)
     g0, u0 = force_fn(q)
     h0 = u0 + mass_kinetic(inv_mass, p)
     q_new, p_new, _, u1 = leapfrog(force_fn, q, p, eps, n_leapfrog, inv_mass, g0)
@@ -374,6 +394,34 @@ def find_reasonable_epsilon(potential_fn, q, p, inv_mass, max_iters: int = 60,
     return torch.tensor(eps, dtype=q.dtype, device=q.device)
 
 
+def find_reasonable_epsilon_per_chain(force_fn, q, p, inv_mass, max_iters: int = 60):
+    """``find_reasonable_epsilon`` for every chain of ``q`` (C, d) at once,
+    each chain under its own potential (``force_fn``) and mass: each doubles
+    or halves its own ε until its one-step acceptance crosses 0.5, in
+    lock-step (one host read per round). Returns (C,) step sizes."""
+    g0, u0 = force_fn(q)
+    h0 = u0 + mass_kinetic(inv_mass, p)
+
+    def log_accept(eps):
+        _, p1, _, u1 = leapfrog(force_fn, q, p, eps, 1, inv_mass, g0)
+        la = h0 - (u1 + mass_kinetic(inv_mass, p1))
+        return torch.where(torch.isfinite(la), la, -math.inf)
+
+    log_half = math.log(0.5)
+    eps = torch.ones_like(u0)
+    la = log_accept(eps)
+    up = la > log_half
+    for _ in range(max_iters):
+        moving = torch.where(up, la > log_half, la < log_half) & (eps > 1e-10) & (eps < 1e7)
+        if not bool(torch.any(moving)):
+            break
+        eps = torch.where(moving, torch.where(up, 2.0 * eps, 0.5 * eps), eps)
+        la = torch.where(moving, log_accept(eps), la)
+    # doubling exits one step past the crossing: step back
+    eps = torch.where(up, 0.5 * eps, eps)
+    return torch.clamp(eps, 1e-8, 1e6)
+
+
 # ---------------------------------------------------------------------------
 # Initial positions
 # ---------------------------------------------------------------------------
@@ -393,6 +441,15 @@ def initial_positions(staged: StagedModel, generator: torch.Generator,
     seeds = torch.randint(0, 2**62, (n_chains,), generator=generator,
                           device=staged.device).tolist()
     return torch.stack([staged.initial_position(s) for s in seeds]).to(dt)
+
+
+def prior_positions(staged: StagedModel, seed: int, n: int):
+    """``n`` prior draws in ONE batched model run, mapped to the
+    unconstrained space in one more: ((n, d) positions, the latents, each
+    with a leading (n,) dim)."""
+    latents = staged.sample_prior_batch(seed, n)
+    z = vmap(lambda lat: staged.unconstrain(lat))(latents)
+    return z.to(settings.real_dtype()), latents
 
 
 def _warm_start_batch(staged, generator, n_chains, init_position, init_jitter):
@@ -454,10 +511,21 @@ def make_hmc_drive(
     n_warmup: int,
     *,
     discrete: Optional[Dict[str, Any]] = None,
+    force_fn: Optional[Callable] = None,
+    per_chain: bool = False,
 ):
     """Build ``drive(q0, generator, eps_over=None, inv_mass_over=None) →
     (q_f, qs, ljs, aps, divs, eps, inv_mass)``; discrete sites are held at
-    ``discrete`` (default: their discovery values).
+    ``discrete`` (default: their discovery values). ``force_fn`` ((C, d) →
+    (∇U, U)) replaces the staged potential's batched force where each chain
+    has a potential of its own.
+
+    ``per_chain``: every chain adapts on its own, as a one-chain run would
+    (SBC runs its datasets so): its own reasonable-ε search, dual averaging
+    on its own acceptance and its own Welford mass, kept as one (d, d)
+    matrix per chain (diagonal unless ``config.mass`` is dense); ``eps`` is
+    then (C,) and ``inv_mass`` (C, d, d). A one-chain run's rescue copies
+    the chain onto itself, so there is none.
 
     Warmup: two windows of dual averaging on the cross-chain mean
     acceptance; at the midpoint the mass becomes the regularized Welford
@@ -475,13 +543,24 @@ def make_hmc_drive(
     def potential(z):
         return staged.potential(z, discrete)
 
+    if force_fn is None:
+        force_fn = batched_force(potential)
+    chains = n_chains if per_chain else None
+
     def drive(q0, generator: torch.Generator, eps_over=None, inv_mass_over=None):
         dt, dev = q0.dtype, q0.device
         if inv_mass_over is None:
-            im0 = identity_mass(d, dense, dtype=dt, device=dev)
+            im0 = identity_mass(d, dense, dtype=dt, device=dev, chains=chains)
         else:
             im0 = torch.as_tensor(inv_mass_over, dtype=dt, device=dev)
-        eps0 = initial_step_size(config, potential, q0, generator, im0, eps_over)
+        if not per_chain:
+            eps0 = initial_step_size(config, potential, q0, generator, im0, eps_over)
+        elif eps_over is not None or config.step_size is not None:
+            eps = config.step_size if eps_over is None else eps_over
+            eps0 = torch.as_tensor(eps, dtype=dt, device=dev).expand(n_chains).clone()
+        else:
+            p = mass_draw_momentum(generator, im0, q0.shape)
+            eps0 = find_reasonable_epsilon_per_chain(force_fn, q0, p, im0)
 
         def uniform(shape):
             return torch.rand(shape, generator=generator, device=dev, dtype=dt)
@@ -492,10 +571,10 @@ def make_hmc_drive(
             if config.jitter > 0:
                 eps = eps * (1.0 - config.jitter * uniform((n_chains,)))
             return hmc_transition(potential, q, p, log_u, eps, L, inv_mass,
-                                  config.max_delta_energy)
+                                  config.max_delta_energy, force_fn=force_fn)
 
         def warm_window(q, da, inv_mass, n_steps):
-            welford = WelfordState.init(d, dense, dtype=dt, device=dev)
+            welford = WelfordState.init(d, dense, dtype=dt, device=dev, chains=chains)
             ema = torch.full((n_chains,), 0.5, dtype=dt, device=dev)
             for _ in range(n_steps):
                 if config.adapt_step_size:
@@ -503,10 +582,16 @@ def make_hmc_drive(
                 else:
                     eps = torch.exp(da.mu - math.log(10.0))
                 q, info = step(q, eps, inv_mass)
-                da = dual_averaging_update(da, torch.mean(info.accept_prob),
-                                           config.target_accept)
-                welford = welford_push_batch(welford, q)
+                if per_chain:
+                    da = dual_averaging_update(da, info.accept_prob, config.target_accept)
+                    welford = welford_push_batch(welford, q.unsqueeze(-2))
+                else:
+                    da = dual_averaging_update(da, torch.mean(info.accept_prob),
+                                               config.target_accept)
+                    welford = welford_push_batch(welford, q)
                 ema = 0.9 * ema + 0.1 * info.accept_prob
+            if per_chain:
+                return q, da, welford
             return rescue_stuck(q, ema, generator), da, welford
 
         q, da, inv_mass = q0, DualAveragingState.init(eps0), im0
@@ -514,7 +599,12 @@ def make_hmc_drive(
             n_half = n_warmup // 2
             q, da, welford = warm_window(q, da, inv_mass, max(n_half, 1))
             if config.adapt_mass:
-                inv_mass = welford_covariance(welford) if dense else welford_variance(welford)
+                if dense:
+                    inv_mass = welford_covariance(welford)
+                elif per_chain:
+                    inv_mass = torch.diag_embed(welford_variance(welford))
+                else:
+                    inv_mass = welford_variance(welford)
                 da = DualAveragingState.init(torch.exp(da.log_eps_bar))
             q, da, _ = warm_window(q, da, inv_mass, max(n_warmup - n_half, 1))
         # adaptation off -> the configured eps (da.log_eps moves regardless)

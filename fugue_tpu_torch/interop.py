@@ -28,6 +28,14 @@ A JAX ``VIResult.params`` (``{address: {loc, raw_scale | raw_a, raw_b}}``,
 this package's flat-backed params through ``vi_params_from_numpy``, and
 ``optimize_meanfield_vi(resume=...)`` or ``optimize_fullrank_vi(resume=...)``
 continues from them (the JAX ``VIResult`` itself also works there).
+
+A JAX ``GibbsResult``'s sweep state (``final_positions`` (C, d),
+``final_discrete`` and ``step_size``) becomes a ``GibbsState`` through
+``gibbs_state_from_numpy`` for ``gibbs_chain(resume=...)``, and a JAX
+``PTResult``'s ladder (``final_positions`` (K, C, d) and the per-rung
+``step_size`` (K,)) a ``PTState`` through ``pt_state_from_numpy`` for
+``pt_chain(resume=...)``. A JAX ``MAPResult.z`` is a warm start as it is:
+``tensor_from_numpy(res.z)`` goes to any engine's ``init_position=``.
 """
 
 from __future__ import annotations
@@ -178,3 +186,43 @@ def vi_params_from_numpy(params, *, device="cuda", dtype=torch.float32):
         else:
             out.setdefault(path[0], {})[path[1]] = view
     return out
+
+
+@dataclass
+class GibbsState:
+    final_positions: torch.Tensor  # (C, d) unconstrained
+    final_discrete: Dict[str, torch.Tensor]  # address -> (C, *site_shape)
+    step_size: torch.Tensor  # 0-dim
+
+
+def gibbs_state_from_numpy(positions, discrete: Dict[str, np.ndarray], step_size, *,
+                           device="cuda", dtype=torch.float32) -> GibbsState:
+    """A Gibbs sweep state from numpy arrays: positions (C, d), discrete
+    values (C, *site_shape) per address (kept in their integer or bool
+    dtype) and the scalar step size."""
+    q = tensor_from_numpy(positions, device=device, dtype=dtype)
+    disc = {str(a): tensor_from_numpy(v, device=device) for a, v in discrete.items()}
+    if q.dim() != 2 or any(v.dim() < 1 or v.shape[0] != q.shape[0] for v in disc.values()):
+        raise ValueError(f"positions {tuple(q.shape)} must be (C, d) and every discrete "
+                         "array must lead with the same C")
+    eps = tensor_from_numpy(np.asarray(step_size, dtype=np.float64).reshape(()),
+                            device=device, dtype=dtype)
+    return GibbsState(final_positions=q, final_discrete=disc, step_size=eps)
+
+
+@dataclass
+class PTState:
+    final_positions: torch.Tensor  # (K, C, d) unconstrained, the whole ladder
+    step_size: torch.Tensor  # (K,) per rung
+
+
+def pt_state_from_numpy(positions, step_size, *, device="cuda",
+                        dtype=torch.float32) -> PTState:
+    """A tempering ladder from numpy arrays: positions (K, C, d) and the
+    per-rung step sizes (K,)."""
+    q = tensor_from_numpy(positions, device=device, dtype=dtype)
+    eps = tensor_from_numpy(step_size, device=device, dtype=dtype)
+    if q.dim() != 3 or tuple(eps.shape) != (q.shape[0],):
+        raise ValueError(f"positions {tuple(q.shape)} must be (K, C, d) and step sizes "
+                         f"{tuple(eps.shape)} (K,)")
+    return PTState(final_positions=q, step_size=eps)

@@ -277,7 +277,7 @@ class StagedModel:
         out = {}
         for s in self.continuous_sites:
             lo, hi = self._offsets[s.address]
-            out[s.address] = vec[..., lo:hi].reshape(*vec.shape[:-1], *s.shape)
+            out[s.address] = vec[..., lo:hi].reshape(tuple(vec.shape[:-1]) + tuple(s.shape))
         return out
 
     # -- flat unconstrained parameterization --------------------------------

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in one HMC, NUTS, ChEES or MH transition, VI iteration or ABC dispatch of the PyTorch port, on a GPU.
 
-    python3 scripts/profile_torch_hmc.py [--engine hmc|nuts|chees|mh|vi|abc] [--out DIR]
+    python3 scripts/profile_torch_hmc.py [--engine hmc|nuts|chees|mh|vi|abc|logistic] [--out DIR]
 
 For chip_smoke.py's two models at its shapes, eight-schools (1024 chains,
 L=32) and the 2^20-row Gaussian plate (64 chains, L=16): it times transitions with CUDA
@@ -56,8 +56,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import fugue_tpu_torch as ftt  # noqa: E402
-from chip_smoke import (ABC_N_OBS, _abc_distance, _abc_sim, abc_data,  # noqa: E402
-                        coin_model, eight_schools_model, hierarchical_model, plate_data,
+from chip_smoke import (ABC_N_OBS, LOGISTIC_SHAPE, _abc_distance, _abc_sim,  # noqa: E402
+                        _gemm_events, abc_data, coin_model, eight_schools_model,
+                        hierarchical_model, logistic_data, logistic_model, plate_data,
                         plate_model, traced_kernels)
 from fugue_tpu_torch.inference import chees, hmc, mh, nuts, vi  # noqa: E402
 
@@ -160,6 +161,10 @@ def profile_model(name, model, n_chains, n_leapfrog, eps, out_dir, engine="hmc",
         "device_idle_share_under_profiler": 1.0 - busy_us * 1e-6 / traced_wall,
         f"top_kernels_us_per_{unit}": [[k[:80], v / evals] for k, v in top],
     }
+    gemms = _gemm_events(kernels)
+    if gemms:
+        row[f"gemms_per_{unit}"] = len(gemms) / evals
+        row[f"gemm_device_us_per_{unit}"] = sum(e.time_range.elapsed_us() for e in gemms) / evals
     if engine == "nuts":
         row.update(max_depth=MAX_DEPTH, leaves_per_transition=timed_evals / n_timed - 1,
                    host_syncs_per_leaf=counts["syncs"] / (evals - n_traced))
@@ -257,15 +262,22 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="profile_out",
                     help="directory for the key_averages tables")
-    ap.add_argument("--engine", choices=("hmc", "nuts", "chees", "mh", "vi", "abc"),
+    ap.add_argument("--engine", choices=("hmc", "nuts", "chees", "mh", "vi", "abc", "logistic"),
                     default="hmc", help="profile HMC transitions (L fixed), NUTS, ChEES or MH "
-                    "transitions, VI iterations or ABC dispatches")
+                    "transitions, VI iterations, ABC dispatches or HMC on the d = 1024 "
+                    "logistic row")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_hmc: no CUDA device")
     if args.engine in ("vi", "abc"):
         for row in (vi_rows if args.engine == "vi" else abc_rows)(args.out):
             print(json.dumps(row), flush=True)
+        return 0
+    if args.engine == "logistic":
+        d, n, c = LOGISTIC_SHAPE
+        x, y, _ = logistic_data(d, n)
+        row = profile_model("logistic", logistic_model(x, y), c, 16, 0.3, args.out)
+        print(json.dumps(row), flush=True)
         return 0
     if args.engine == "mh":
         cells = (("coin", coin_model("cuda"), 4096, None, None, None),

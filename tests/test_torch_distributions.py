@@ -394,3 +394,31 @@ def test_infallible_shortcuts():
     assert ftt.Beta.uniform_prior().log_prob(x).item() == pytest.approx(0.0, abs=1e-15)
     assert ftt.Categorical.uniform(4).log_prob(torch.tensor(2)).item() == pytest.approx(
         math.log(0.25))
+
+
+def test_constructors_make_no_device_of_their_own():
+    """``Categorical.uniform`` takes no device: its table is made in the real
+    dtype and follows the value or generator it meets, as every numpy or
+    CPU tensor parameter does (a model on the card runs them there; see
+    ``tests/test_torch_gpu.py``). Every distribution's ``sample`` and
+    ``log_prob`` carry the device-following wrapper; on the CPU nothing
+    moves."""
+    import inspect
+
+    assert list(inspect.signature(ftt.Categorical.uniform).parameters) == ["k"]
+    cat = ftt.Categorical.uniform(3)
+    assert cat.probs.dtype == settings.real_dtype() and cat.probs.device.type == "cpu"
+    for cls in ftt.ALL_DISTRIBUTIONS:
+        assert getattr(cls.sample, "_follows", False), cls.__name__
+        assert getattr(cls.log_prob, "_follows", False), cls.__name__
+
+    def model():
+        k = ftt.sample("k", ftt.Categorical.uniform(3))
+        w = ftt.sample("w", ftt.Normal(np.array([0.0, 1.0]), np.array([1.0, 2.0])))
+        ftt.observe("y", ftt.Normal(w[k.clamp(max=1)], 1.0), torch.tensor(0.5))
+
+    staged = ftt.stage(model, device="cpu")
+    lat = staged.sample_prior_batch(4, 64)
+    assert lat["k"].shape == (64,) and int(lat["k"].max()) <= 2
+    lj = torch.func.vmap(staged.log_joint)(lat)
+    assert lj.shape == (64,) and bool(torch.isfinite(lj).all())

@@ -47,7 +47,14 @@ FLAT_API = ("sample", "observe", "factor", "guard", "Normal", "LogNormal", "stag
             "estimate_elbo", "optimize_meanfield_vi", "optimize_fullrank_vi", "ABCError",
             "ABCResult", "ABCSMCConfig", "SummaryStatsDistance", "abc_rejection",
             "abc_smc_weighted", "abc_smc", "abc_scalar_summary", "euclidean_distance",
-            "manhattan_distance")
+            "manhattan_distance", "MAPConfig", "MAPResult", "map_estimate", "LaplaceResult",
+            "laplace_approximation", "MarginalizedModel", "marginalize", "GibbsResult",
+            "gibbs_chain", "ESSConfig", "ESSResult", "ess_chain", "PTConfig", "PTResult",
+            "geometric_ladder", "pt_chain", "ELPDResult", "pointwise_log_likelihood", "waic",
+            "psis_loo", "compare", "ValidationResult", "ConjugateNormalConfig",
+            "ConjugateBetaBernoulliConfig", "ks_two_sample", "validate_conjugate_normal",
+            "validate_beta_bernoulli", "SBCResult", "sbc", "DynamicMHResult",
+            "adaptive_mcmc_chain_dynamic")
 ENTRY_POINTS = (ftt.stage, ftt.StagedModel, ftt.hmc_chain, ftt.HmcSession, ftt.nuts_chain,
                 ftt.NutsSession, ftt.adaptive_smc, ftt.importance_reweight, ftt.chees_chain,
                 ftt.CheesSession, ftt.adaptive_mcmc_chain, interop.tensor_from_numpy,
@@ -57,7 +64,11 @@ ENTRY_POINTS = (ftt.stage, ftt.StagedModel, ftt.hmc_chain, ftt.HmcSession, ftt.n
                 ftt.optimize_fullrank_vi, ftt.estimate_elbo, ftt.abc_rejection,
                 ftt.abc_smc_weighted, ftt.abc_smc, ftt.abc_scalar_summary, ftt.ReplayHandler,
                 ftt.PredictiveHandler, ftt.SafeScoreGivenTrace, ftt.ReconcilingScoreGivenTrace,
-                ftt.score_given_trace_safe, ftt.score_given_trace_reconciled)
+                ftt.score_given_trace_safe, ftt.score_given_trace_reconciled,
+                ftt.map_estimate, ftt.marginalize, ftt.gibbs_chain, ftt.ess_chain, ftt.pt_chain,
+                ftt.pointwise_log_likelihood, ftt.validate_conjugate_normal,
+                ftt.validate_beta_bernoulli, ftt.sbc, ftt.adaptive_mcmc_chain_dynamic,
+                interop.gibbs_state_from_numpy, interop.pt_state_from_numpy)
 
 
 @pytest.fixture(autouse=True)
