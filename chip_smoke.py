@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's HMC, SMC, NUTS, ChEES, MH, VI, ABC and other engines' main paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's HMC, SMC, NUTS, ChEES, MH, VI, ABC and other engines' main paths, and its JSON-RPC service, on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py                      # all phases
     python3 chip_smoke.py --phases build,kernel
@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases build,vi_hierarchical,vi_plate,vi_scale,abc_rejection,abc_smc
     python3 chip_smoke.py --phases logistic_scale,laplace_regression,marginal_gmm,gibbs_mixed
     python3 chip_smoke.py --phases ess_gp,pt_bimodal,validation_conjugate,sbc_normal,mh_transdimensional
+    python3 chip_smoke.py --phases build,serve_coin,serve_eight_schools,serve_pf
 
 Phases (each prints JSON lines; any failure raises and exits non-zero):
 
@@ -51,16 +52,14 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  + 3 logsumexp, stages - 1 resample).
 7. nuts_eight_schools  ftt.nuts_chain at bench_nuts's shape: 1024 chains,
                  NUTSConfig() (max_depth 8, target 0.8, diagonal mass),
-                 float32, 100 warmup + 100 samples (cut from 200 + 200 when
-                 the other engines' phases joined the smoke); gates on
-                 split-R-hat, divergence rate and the posterior mean of mu
-                 (the HMC phase's constant: the same posterior). Reports
+                 float32, 200 warmup + 200 samples; gates on split-R-hat,
+                 divergence rate and the posterior mean of mu (the HMC
+                 phase's constant: the same posterior). Reports
                  grad-evals/s, ESS/s, mean tree depth, the lock-step leaves
                  per transition (batch maximum) beside each chain's mean,
                  and host syncs per transition.
 8. nuts_plate    ftt.nuts_chain on the 2^20-row plate (64 chains, uniform
-                 init, 100 + 100, cut from 200 + 200, diagonal mass); the
-                 HMC plate's gates and
+                 init, 200 + 200, diagonal mass); the HMC plate's gates and
                  one kernel call per batched model run.
 9. smc_coin      ftt.adaptive_smc, float32, 131,072 particles, on the
                  Beta-Bernoulli coin flip (BASELINE config 1), with 3 MH
@@ -160,12 +159,12 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  the linear one's, whose evidence is exact to 1e-3.
 23. marginal_gmm the enumerated mixture of tests/test_marginalize.py on 12
                  points (4,096 states) through ftt.marginalize and
-                 ftt.hmc_chain, 1024 chains, L = 16, 80 + 80 (cut from
+                 ftt.hmc_chain, 1024 chains, L = 16, 60 + 60 (cut from
                  200 + 200): each labelling's chains' means within 5 MC-SE
                  of a 2-D quadrature of that half-plane; infer_discrete's
                  co-assignments > 0.95 within and < 0.05 across clusters.
-24. gibbs_mixed  ftt.gibbs_chain on the mixed model, 1024 chains, 200 + 300:
-                 P(heads | y) and E[mu | y] within 5 MC-SE of the closed form.
+24. gibbs_mixed  ftt.gibbs_chain on the mixed model, 1024 chains, 100 + 200
+                 (cut from 200 + 300): P(heads | y) and E[mu | y] within 5 MC-SE of the closed form.
 25. ess_gp       ftt.ess_chain on the GP regression and classification of
                  examples/gaussian_process.py, 1024 chains, 200 + 400 (cut
                  from 300 + 1000): the regression's mean and covariance
@@ -191,6 +190,39 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  card: P(b present | y) within 5 MC-SE (the indicator's
                  ESS) of its analytic value; births, deaths, transitions/s.
 
+Phases 31-33 each start ``serve(port=0, service=FugueService(),
+block=False)`` in this process and POST JSON-RPC requests over urllib:
+
+31. serve_coin   the coin flip (BASELINE config 1) compiled from DSL source,
+                 one observe per flip: an MH session at 4,096 chains, 300 +
+                 300 transitions, mh.history's mean within 5 MC-SE of 20/31,
+                 host reads per mh.step request the same for n = 1, 10, 100;
+                 the session's state and generator saved mid-run, restored
+                 into a fresh session, both stepped 50 times: bitwise equal;
+                 smc.run at 131,072 particles, mean p and log Z within 5 of
+                 the run's standard errors of 20/31 and log B(20, 11) -
+                 log B(2, 2), 4 * stages + 3 logsumexp and stages - 1
+                 resample launches; hmc.step and nuts.step (warmup 100)
+                 recorded; vi.run with both guides, 600 iterations
+                 (tests/test_serve.py's, and its gates); vi.run's two
+                 -32602 repairs; hmc.sharded -32601.
+32. serve_eight_schools  non-centred eight-schools in the DSL (18 sites,
+                 bench.py's priors): chees.new at 1,024 chains, 200 warmup,
+                 then 200 chees.step requests; mean mu within 5 MC-SE of the
+                 eight_schools constant; grad-evals/s through the service,
+                 kernels and device us per batched gradient of the DSL model
+                 and of the hand-written one, ms per request; one grid
+                 request of 512 x 512 log joints over (mu, tau), theta_raw
+                 fixed, within 3e-5 (relative, float32) of a float64 numpy
+                 closed form.
+33. serve_pf     pf.new at 2^20 particles (q = 0.3, r = 0.5), 200 pf.observe
+                 requests on a random walk made with numpy: every filtered
+                 mean within 5 sqrt(P_t (1/ESS_t + 1/N)) of the exact Kalman
+                 filter's; 3 logsumexp + 1 resample launches and one host
+                 read per observe; one observe under
+                 utils.profiling.device_trace, whose trace names both
+                 kernels.
+
 Then it prints the card's name and power limit, one JSON line describing
 the kernels, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -200,6 +232,7 @@ It needs a CUDA device and nvcc, and imports no JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -219,7 +252,7 @@ PHASES = ("build", "kernel", "eight_schools", "gaussian_plate", "smc_kernels", "
           "vi_hierarchical", "vi_plate", "vi_scale", "abc_rejection", "abc_smc",
           "logistic_scale", "laplace_regression", "marginal_gmm", "gibbs_mixed", "ess_gp",
           "pt_bimodal", "loo_eight_schools", "validation_conjugate", "sbc_normal",
-          "mh_transdimensional")
+          "mh_transdimensional", "serve_coin", "serve_eight_schools", "serve_pf")
 SOURCES = ("normal_loglik_sum", "logsumexp", "systematic_resample")
 REPLACES = {
     # _nll_fwd_kernel and _nll_bwd_kernel, one value-and-grad kernel here
@@ -361,6 +394,45 @@ def device_ms(fn, reps: int = 25, calls: int = 10) -> float:
         events.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events) / calls
+
+
+def reset_launches():
+    """Every kernel wrapper's launch count set to 0, after the work already
+    queued has run."""
+    from fugue_tpu_torch.ops import kernels as K
+
+    torch.cuda.synchronize()
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
+
+
+def read_launches():
+    """The launch counts since ``reset_launches``, once the work queued has
+    run: {"nll", "lse", "resample"}."""
+    from fugue_tpu_torch.ops import kernels as K
+
+    torch.cuda.synchronize()
+    return dict(K.LAUNCHES)
+
+
+@contextlib.contextmanager
+def recording(module, name):
+    """``module.name`` wrapped for the block: each call's (args, result) is
+    appended to the list the block gets. The wrapper calls the real
+    function and launches nothing of its own."""
+    real = getattr(module, name)
+    calls = []
+
+    def wrapper(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append((args, out))
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
 
 
 # ---------------------------------------------------------------------------
@@ -695,20 +767,17 @@ def _plate_run(run):
     MAIN_SHAPE's rows, timed, with the kernel's launch counts and the
     batched model runs set to 0 just before and read just after."""
     import fugue_tpu_torch as ftt
-    from fugue_tpu_torch.ops import kernels as K
 
     y = plate_data(MAIN_SHAPE[1])
     model_runs = [0]
     staged = ftt.stage(plate_model(y, model_runs), device="cuda")
-    torch.cuda.synchronize()
     model_runs[0] = 0
-    for k in K.LAUNCHES:
-        K.LAUNCHES[k] = 0
+    reset_launches()
     t0 = time.perf_counter()
     res = run(staged, y)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return y, res, wall, dict(K.LAUNCHES), model_runs[0]
+    return y, res, wall, read_launches(), model_runs[0]
 
 
 def phase_gaussian_plate():
@@ -1149,16 +1218,13 @@ def _smc_run(name, staged, n, seed, config, site="mu", phase="smc"):
     to 0 just before and read just after; checks convergence, the weights
     and both kernels' launch counts, and reports ``site``'s posterior."""
     import fugue_tpu_torch as ftt
-    from fugue_tpu_torch.ops import kernels as K
 
-    torch.cuda.synchronize()
-    for k in K.LAUNCHES:
-        K.LAUNCHES[k] = 0
+    reset_launches()
     t0 = time.perf_counter()
     res = ftt.adaptive_smc(seed, n, staged=staged, config=config)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    launches = read_launches()
     x = res.particles[site]
     check(x.shape == (n,) and bool(torch.isfinite(x).all()),
           f"{name}: {site} {tuple(x.shape)} or non-finite")
@@ -1409,10 +1475,10 @@ def phase_chees_eight_schools():
 
     one()
     syncs = _host_syncs(one)
+    stats = _chees_stats(res, n_chains, n_transitions, wall)
     emit({"phase": "chees_eight_schools", "card": card_line(), "chains": n_chains,
           "warmup": n_warmup, "samples": n_samples, "target_accept": 0.8, "wall_s": wall,
-          "ess_per_s": min(post["ess_mu"], post["ess_tau"]) / wall, **post,
-          **_chees_stats(res, n_chains, n_transitions, wall),
+          "ess_per_s": min(post["ess_mu"], post["ess_tau"]) / wall, **post, **stats,
           "host_syncs_of_one_transition": syncs, "criterion_advice": advice})
     rhat, div, z = post["split_rhat_mu"], post["divergence_rate"], post["mu_z"]
     check(rhat < 1.02, f"chees eight_schools split-R-hat(mu) {rhat} >= 1.02")
@@ -1423,6 +1489,7 @@ def phase_chees_eight_schools():
     check(res.host_syncs == n_transitions,
           f"chees eight_schools: {res.host_syncs} tau reads in {n_transitions} transitions")
     check(syncs == 1, f"one chees transition made {syncs} host syncs, not 1")
+    return stats["grad_evals_per_s"]
 
 
 def phase_chees_plate():
@@ -1532,19 +1599,53 @@ def phase_mh_hierarchical():
           f"{row['accept_rate_max']}]")
 
 
+# torch.profiler drops the first kernel records of a session: usually 4 or
+# 5, now and then hundreds or all (PERF.md, section 6). Each traced session is
+# primed (utils.profiling.prime_session) and kept only when a priming
+# kernel is in it; a session that kept none is traced again, up to
+# TRACE_SESSIONS in all. TRACES counts them for the run's last lines.
+TRACE_SESSIONS = 3
+TRACES = {"sessions": 0, "rejected": 0}
+
+
+def whole_session(trace_once, what):
+    """``trace_once()``'s result, or None when its session kept no priming
+    kernel: the first result that is not None, in TRACE_SESSIONS tries."""
+    for _ in range(TRACE_SESSIONS):
+        TRACES["sessions"] += 1
+        out = trace_once()
+        if out is not None:
+            return out
+        TRACES["rejected"] += 1
+    raise SmokeFailure(f"{what}: no priming kernel left in {TRACE_SESSIONS} profiler sessions")
+
+
 def traced_kernels(fn, cpu=False):
-    """One ``fn()`` call under torch.profiler, from a synchronised start to
-    a synchronised end: (the profiler, the CUDA kernel events). ``cpu``
-    traces the host side too."""
+    """One ``fn()`` call under torch.profiler, from a primed, synchronised
+    start to a synchronised end: (the profiler, fn's CUDA kernel events).
+    ``cpu`` traces the host side too. A session that lost every priming
+    kernel is traced again (``whole_session``); one that recorded no
+    kernel of ``fn`` fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
+    from fugue_tpu_torch.utils.profiling import is_priming_kernel, prime_session
+
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
-    with profile(activities=acts) as prof:
-        fn()
+
+    def once():
         torch.cuda.synchronize()
-    return prof, [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        with profile(activities=acts) as prof:
+            prime_session()
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        events = [e for e in kernels if not is_priming_kernel(e.name)]
+        return (prof, events) if len(events) < len(kernels) else None
+
+    prof, events = whole_session(once, "a traced call")
+    check(bool(events), "the profiler recorded no CUDA kernel of the traced call")
+    return prof, events
 
 
 def run_sd_z(x, ref, runs):
@@ -1663,19 +1764,16 @@ def phase_vi_plate():
     """Mean-field VI on the 2^20-row plate: 64 MC samples per iteration, so
     each iteration is one plate-kernel call at (64, 2^20)."""
     import fugue_tpu_torch as ftt
-    from fugue_tpu_torch.ops import kernels as K
 
     n_iter = VI_PLATE_SEGMENTS * VI_PLATE_ITERATIONS
     y_np = plate_numpy_data(MAIN_SHAPE[1])
     y = torch.as_tensor(y_np, dtype=torch.float32, device="cuda")
     model_runs = [0]
     staged = ftt.stage(plate_model(y, model_runs), device="cuda")
-    torch.cuda.synchronize()
     model_runs[0] = 0
-    for k in K.LAUNCHES:
-        K.LAUNCHES[k] = 0
+    reset_launches()
     res, wall, syncs = _timed_syncs(lambda: vi_plate_run(staged, 700))
-    launches = dict(K.LAUNCHES)
+    launches = read_launches()
     runs = model_runs[0]
     stats = vi_plate_stats(res.params, y_np)
     row = {"phase": "vi_plate", "card": card_line(), "rows": MAIN_SHAPE[1], "mc_samples": 64,
@@ -1795,7 +1893,6 @@ def phase_abc_smc():
     batch 16,384; the weighted run, and abc_smc (the same weighted run and
     the terminal systematic resample)."""
     import fugue_tpu_torch as ftt
-    from fugue_tpu_torch.ops import kernels as K
 
     obs_np = abc_data()
     post_m, post_sd = abc_posterior(obs_np)
@@ -1811,10 +1908,9 @@ def phase_abc_smc():
     launches = {}
     rows = {}
     for name, fn in (("weighted", ftt.abc_smc_weighted), ("equal_weight", ftt.abc_smc)):
-        for k in K.LAUNCHES:
-            K.LAUNCHES[k] = 0
+        reset_launches()
         res, wall, syncs = _timed_syncs(lambda: fn(31, **kw))
-        launches[name] = dict(K.LAUNCHES)
+        launches[name] = read_launches()
         rows[name] = (res, wall, syncs)
     rw, wall, syncs = rows["weighted"]
     w = torch.exp(rw.log_weights.double()).cpu().numpy()
@@ -2148,7 +2244,7 @@ def phase_marginal_gmm():
     import fugue_tpu_torch as ftt
 
     data = gmm_data()
-    n_chains, n_warmup, n_samples, L = 1024, 80, 80, 16  # cut from 200 + 200
+    n_chains, n_warmup, n_samples, L = 1024, 60, 60, 16  # cut from 200 + 200 (PERF.md §4)
     marg = ftt.marginalize(gmm_model(data, "cuda"), device="cuda")
     check(marg.n_states == 4096, f"marginal_gmm: {marg.n_states} states, want 4096")
     torch.cuda.synchronize()
@@ -2206,7 +2302,7 @@ def phase_gibbs_mixed():
     1024 chains."""
     import fugue_tpu_torch as ftt
 
-    n_chains, n_warmup, n_samples = 1024, 200, 300
+    n_chains, n_warmup, n_samples = 1024, 100, 200  # cut from 200 + 300 (PERF.md §4)
     staged = ftt.stage(mixed_discrete_model("cuda"), device="cuda")
     res, wall, syncs = _timed_syncs(lambda: ftt.gibbs_chain(
         0, staged=staged, n_samples=n_samples, n_warmup=n_warmup, n_chains=n_chains))
@@ -2238,7 +2334,7 @@ def phase_ess_gp():
     import fugue_tpu_torch as ftt
     from fugue_tpu_torch.inference.mcmc_utils import ess_multichain
 
-    n_chains, n_warmup, n_samples = 1024, 300, 1000
+    n_chains, n_warmup, n_samples = 1024, 200, 400  # cut from 300 + 1000 (PERF.md §4)
     k, y, labels = gp_data()
     kt = torch.tensor(k, dtype=torch.float32, device="cuda")
     yt = torch.tensor(y, dtype=torch.float32, device="cuda")
@@ -2371,20 +2467,11 @@ def phase_validation_conjugate():
     each run's own 384,000 log-weights. Returns the smc runs' launches."""
     import fugue_tpu_torch as ftt
     from fugue_tpu_torch.inference import smc as smc_mod
-    from fugue_tpu_torch.ops import kernels as K
-
-    runs = []  # the smc adapter's adaptive_smc results, recorded as they return
-    real_adaptive_smc = smc_mod.adaptive_smc
-
-    def recording_adaptive_smc(*args, **kwargs):
-        res = real_adaptive_smc(*args, **kwargs)
-        runs.append(res)
-        return res
 
     row = {"phase": "validation_conjugate", "card": card_line()}
     launches = {"lse": 0, "resample": 0}
-    smc_mod.adaptive_smc = recording_adaptive_smc
-    try:
+    # the smc adapter's adaptive_smc results, recorded as they return
+    with recording(smc_mod, "adaptive_smc") as calls:
         for sampler in ("hmc", "mh", "smc"):
             cut = dict(n_samples=100, n_warmup=100) if sampler == "hmc" else {}
             for name, fn, cfg in (
@@ -2392,11 +2479,9 @@ def phase_validation_conjugate():
                      ftt.ConjugateNormalConfig(n_chains=256, **cut)),
                     ("beta_bernoulli", ftt.validate_beta_bernoulli,
                      ftt.ConjugateBetaBernoulliConfig(n_chains=256, **cut))):
-                torch.cuda.synchronize()
-                for k in K.LAUNCHES:
-                    K.LAUNCHES[k] = 0
+                reset_launches()
                 r, wall, _ = _timed_syncs(lambda: fn(0, sampler, cfg, device="cuda"))
-                got = dict(K.LAUNCHES)
+                got = read_launches()
                 se_mean = math.sqrt(r.expected_var / r.ess)
                 se_var = r.expected_var * math.sqrt(2.0 / max(r.ess - 1.0, 1.0))
                 z_mean = (r.observed_mean - r.expected_mean) / se_mean
@@ -2413,7 +2498,7 @@ def phase_validation_conjugate():
                     check(got["lse"] == got["resample"] == 0,
                           f"validation_conjugate {sampler} {name}: SMC kernel launches {got}")
                     continue
-                res = runs[-1]
+                res = calls[-1][1]
                 s = res.n_stages
                 row[f"{sampler}_{name}"].update(particles=res.log_weights.numel(), stages=s)
                 # adaptive_smc's 4 * stages + 3 logsumexp and stages - 1
@@ -2422,12 +2507,11 @@ def phase_validation_conjugate():
                       f"validation_conjugate smc {name}: launches {got}, want {4 * s + 3} "
                       f"logsumexp, {s} resample for {s} stages")
                 _add_launches(launches, got)
-    finally:
-        smc_mod.adaptive_smc = real_adaptive_smc
     emit(row)
     # both kernels against their plain versions on each smc run's own
     # 384,000 log-weights (these launches come after the counts were read)
     kernel_rows = {}
+    runs = [res for _, res in calls]
     for name, res in zip(("normal", "beta_bernoulli"), runs):
         lw = res.log_weights.float()
         check(lw.numel() == 256 * 1500, f"validation_conjugate smc {name}: {lw.numel()} particles")
@@ -2511,6 +2595,464 @@ def phase_mh_transdimensional():
           f"{z:.2f} MC-SE from {exact}")
 
 
+# ---------------------------------------------------------------------------
+# the serving surface: the DSL, the sessions and the JSON-RPC service
+# ---------------------------------------------------------------------------
+
+COIN_DSL = ('let p <- sample("p", beta(2.0, 2.0));'
+            'for i in 0..27 { observe(("y", i), bernoulli(p), flips[i]); }'
+            'return p;')
+COIN_FLIPS = [1] * 18 + [0] * 9  # coin_model's data: 18 heads of 27
+EIGHT_SCHOOLS_DSL = """
+let mu <- sample("mu", normal(0.0, 5.0));
+let tau <- sample("tau", lognormal(0.5, 1.0));
+for j in 0..8 {
+    let theta_raw <- sample(("theta_raw", j), normal(0.0, 1.0));
+    observe(("y", j), normal(mu + tau * theta_raw, sigma[j]), y[j]);
+}
+return mu
+"""
+EIGHT_SCHOOLS_Y = [28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0]
+EIGHT_SCHOOLS_SIGMA = [15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0]
+
+
+class Rpc:
+    """``serve(port=0, service=FugueService(), block=False)`` in this process,
+    its ``serve_forever`` in a thread; ``rpc(method, **params)`` POSTs one
+    JSON-RPC request over urllib and returns its result (an error raises).
+    A context manager: leaving it shuts the server down and joins the
+    thread."""
+
+    def __enter__(self):
+        import threading
+
+        from fugue_tpu_torch.serve import FugueService, serve
+
+        self.service = FugueService()
+        self.httpd = serve(port=0, service=self.service, block=False)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}/"
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=30)
+        check(not self.thread.is_alive(), "the JSON-RPC server thread did not stop")
+
+    def post(self, method, **params):
+        """The whole response: {"result"} or {"error"}."""
+        import urllib.request
+
+        body = json.dumps({"method": method, "params": params, "id": 1}).encode()
+        req = urllib.request.Request(self.url, data=body,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return json.loads(resp.read())
+
+    def __call__(self, method, **params):
+        out = self.post(method, **params)
+        check("error" not in out, f"{method}: {out.get('error')}")
+        return out["result"]
+
+    def device_time(self, method, **params):
+        """({CUDA kernels, their device µs, untraced wall ms, idle share},
+        the traced request's result) of one request: the request traced once
+        (``traced_kernels``; CUPTI sees the handler thread's launches), then
+        timed once without the profiler."""
+        result = {}
+        _, ks = traced_kernels(lambda: result.update(self(method, **params)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self(method, **params)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        device_us = sum(e.time_range.elapsed_us() for e in ks)
+        return {"kernels": len(ks), "device_us": device_us, "wall_ms": wall_ms,
+                "idle_share": 1.0 - 1e-3 * device_us / wall_ms}, result
+
+    def host_reads(self, method, **params) -> int:
+        """The device-to-host syncs of one request, made through the service
+        in this thread (``_host_syncs``; the HTTP layer runs no CUDA)."""
+        out = {}
+        syncs = _host_syncs(lambda: out.update(self.service.handle(
+            {"method": method, "params": params})))
+        check("error" not in out, f"{method}: {out.get('error')}")
+        return syncs
+
+
+def phase_serve_coin():
+    """The coin flip (BASELINE config 1) compiled from DSL source and driven
+    over HTTP: an MH session (with a checkpoint on the card), SMC, HMC and
+    NUTS sessions, both VI guides and the two -32602 repairs."""
+    import tempfile
+
+    from fugue_tpu_torch.dsl import sessions
+    from fugue_tpu_torch.dsl.sessions import MhSession
+    from fugue_tpu_torch.inference.mcmc_utils import ess_multichain
+    from fugue_tpu_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
+
+    log_z, p_exact = coin_exact()
+    p_sd = math.sqrt(20.0 * 11.0 / (31.0 ** 2 * 32.0))  # Beta(20, 11)
+    row = {"phase": "serve_coin", "card": card_line()}
+    with Rpc() as rpc:
+        t0 = time.perf_counter()
+        model = rpc("compile", source=COIN_DSL, data={"flips": COIN_FLIPS})
+        row["compile_ms"] = 1e3 * (time.perf_counter() - t0)
+        check(model["dim"] == 1 and len(model["observed"]) == 27 and not model["warnings"],
+              f"serve_coin compile: {model}")
+        mid = model["model_id"]
+
+        # MH: 4,096 chains, 300 + 300 transitions in two requests
+        chains = 4096
+        sid = rpc("mh.new", model_id=mid, n_chains=chains)["session_id"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rpc("mh.step", session_id=sid, n=300)
+        out = rpc("mh.step", session_id=sid, n=300)
+        mh_wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hist = np.asarray(rpc("mh.history", session_id=sid, address="p")["values"])
+        history_ms = 1e3 * (time.perf_counter() - t0)
+        check(hist.shape == (600, chains) and np.isfinite(hist).all(),
+              f"serve_coin mh.history {hist.shape}")
+        draws = torch.as_tensor(hist[300:].T)  # (chains, 300)
+        ess = ess_multichain(draws).item()
+        mcse = draws.std().item() / math.sqrt(ess)
+        z = (draws.mean().item() - p_exact) / mcse
+        reads = {n: rpc.host_reads("mh.step", session_id=sid, n=n) for n in (1, 10, 100)}
+        # ten MH transitions launch the same kernels in any request: two
+        # traced requests that differ fail (a session lost events)
+        step10, _ = rpc.device_time("mh.step", session_id=sid, n=10)
+        again, _ = rpc.device_time("mh.step", session_id=sid, n=10)
+        check(step10["kernels"] == again["kernels"],
+              f"serve_coin mh.step: {step10['kernels']} and {again['kernels']} kernels traced")
+        row["mh"] = {"chains": chains, "transitions": 600, "wall_s": mh_wall,
+                     "transitions_per_s": chains * 600 / mh_wall,
+                     "accept_rate": out["accept_rate"], "history_ms": history_ms,
+                     "p_mean": draws.mean().item(), "p_exact": p_exact, "ess": ess,
+                     "mcse": mcse, "z": z, "host_reads_per_step_call": reads,
+                     "one_request_of_10_transitions": step10}
+        check(abs(z) < 5.0, f"serve_coin mh: mean p {draws.mean().item()} is {z:.2f} MC-SE "
+              f"from {p_exact}")
+        check(len(set(reads.values())) == 1,
+              f"serve_coin mh.step: host reads {reads} grow with n")
+
+        # a checkpoint on the card: save the session's state and generator
+        # mid-run, restore them into a fresh session, step both
+        sess = rpc.service._sessions[sid]
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "mh.npz")
+            save_checkpoint(path, sess.carry)
+            fresh = MhSession(12345, staged=sess.staged, n_chains=chains)
+            fresh.carry = load_checkpoint(path, fresh.carry)
+        check(fresh.carry["state"].log_joint.is_cuda, "serve_coin: restored state not on the card")
+        a, b = sess.step(50)["p"], fresh.step(50)["p"]
+        same = all(torch.equal(x, y) for x, y in zip(
+            (sess.carry["state"].latents["p"], sess.carry["state"].log_joint,
+             sess.carry["state"].adapt.log_scale),
+            (fresh.carry["state"].latents["p"], fresh.carry["state"].log_joint,
+             fresh.carry["state"].adapt.log_scale)))
+        row["checkpoint_resume_bitwise"] = bool(np.array_equal(a, b) and same)
+        check(row["checkpoint_resume_bitwise"], "serve_coin: the resumed session differs")
+
+        # SMC at 131,072 particles, its kernel launches counted
+        with recording(sessions, "adaptive_smc") as calls:  # the run's result, for its weights
+            reset_launches()
+            t0 = time.perf_counter()
+            smc = rpc("smc.run", model_id=mid, n_particles=N_PARTICLES)
+            smc_wall = time.perf_counter() - t0
+            launches = read_launches()
+        s = smc["n_stages"]
+        # the run's standard errors: every stage's incremental weights keep
+        # an ESS of at least N/2, so log Z's variance is at most stages / N
+        # (x2 for the resampling's duplicates); the mean's is var / ESS x2
+        se_z = math.sqrt(2.0 * s / N_PARTICLES)
+        mean, var = smc["posterior_means"]["p"], smc["posterior_vars"]["p"]
+        se_mean = math.sqrt(2.0 * var / smc["ess"])
+        row["smc"] = {"particles": N_PARTICLES, "wall_s": smc_wall, "stages": s,
+                      "ess": smc["ess"], "log_evidence": smc["log_evidence"],
+                      "log_evidence_exact": log_z, "log_evidence_se": se_z,
+                      "log_evidence_z": (smc["log_evidence"] - log_z) / se_z,
+                      "p_mean": mean, "p_se": se_mean, "p_z": (mean - p_exact) / se_mean,
+                      "launches": {k: launches[k] for k in ("lse", "resample")}}
+        check(abs(row["smc"]["log_evidence_z"]) < 5.0,
+              f"serve_coin smc: log Z {smc['log_evidence']} vs {log_z} (se {se_z})")
+        check(abs(row["smc"]["p_z"]) < 5.0, f"serve_coin smc: mean p {mean} vs {p_exact}")
+        check(launches["lse"] == 4 * s + 3 and launches["resample"] == s - 1,
+              f"serve_coin smc: {launches} for {s} stages")
+        # both kernels against their plain versions on the run's own
+        # 131,072 log-weights (these launches come after the counts were read)
+        (_, res), = calls
+        lw = res.log_weights
+        check(lw.dtype == torch.float32 and lw.shape == (N_PARTICLES,),
+              f"serve_coin smc: log-weights {lw.dtype} {tuple(lw.shape)}")
+        row["smc"]["kernels_vs_plain_on_the_run_weights"] = {
+            "logsumexp": _lse_f32_check(lw, "serve_coin smc logsumexp"),
+            "systematic_resample": [
+                _resample_f32_contract(lw, lw.double().cpu().numpy(), u0v,
+                                       f"serve_coin smc resample u0={u0v}")
+                for u0v in (0.37, 0.0, 1.0 - 2.0**-24)]}
+
+        # HMC and NUTS sessions, recorded transitions
+        hmc = rpc("hmc.new", model_id=mid, n_leapfrog=16)
+        rec = rpc("hmc.step", session_id=hmc["session_id"], recorded=True)
+        check(len(rec["trajectory"]) == 16 and len(rec["hamiltonians"]) == 16
+              and np.isfinite(rec["hamiltonians"]).all(), "serve_coin hmc.step recorded")
+        t0 = time.perf_counter()
+        nuts = rpc("nuts.new", model_id=mid, warmup=100)
+        nuts_new_s = time.perf_counter() - t0
+        nrec = rpc("nuts.step", session_id=nuts["session_id"], recorded=True)
+        check(nrec["n_leapfrog"] == len(nrec["trajectory"]) >= 1
+              and np.isfinite(nrec["hamiltonians"]).all(), "serve_coin nuts.step recorded")
+        row["hmc"] = {"step_size": hmc["step_size"], "trajectory": len(rec["trajectory"])}
+        row["nuts"] = {"warmup_s": nuts_new_s, "step_size": nuts["step_size"],
+                       "n_leapfrog": nrec["n_leapfrog"]}
+
+        # VI, both guides, gated as tests/test_serve.py gates them
+        vi = {}
+        for guide in ("meanfield", "fullrank"):
+            t0 = time.perf_counter()
+            out = rpc("vi.run", model_id=mid, guide=guide, n_iterations=600,
+                      posterior_draws=4096)
+            post = out["posterior"]["p"]
+            vi[guide] = {"wall_s": time.perf_counter() - t0, "mean": post["mean"][0],
+                         "sd": post["sd"][0], "final_elbo": out["final_elbo"],
+                         "n_iterations_run": out["n_iterations_run"]}
+            check(len(out["elbo_history"]) >= 2 and out["final_elbo"] == out["elbo_history"][-1],
+                  f"serve_coin vi.run {guide}: ELBO history")
+        check(abs(vi["meanfield"]["mean"] - p_exact) < 0.04
+              and abs(vi["meanfield"]["sd"] - p_sd) < 0.04, f"serve_coin vi meanfield: {vi}")
+        check(abs(vi["fullrank"]["mean"] - p_exact) < 0.05, f"serve_coin vi fullrank: {vi}")
+        row["vi"] = vi
+
+        # the repairs of the reference's IndexError / NaN, and the unported engine
+        codes = {k: rpc.post("vi.run", model_id=mid, **{k: 0})["error"]["code"]
+                 for k in ("n_iterations", "posterior_draws")}
+        codes["hmc.sharded"] = rpc.post("hmc.sharded", model_id=mid)["error"]["code"]
+        row["error_codes"] = codes
+        check(codes == {"n_iterations": -32602, "posterior_draws": -32602,
+                        "hmc.sharded": -32601}, f"serve_coin error codes {codes}")
+    emit(row)
+    return row["smc"]["launches"]
+
+
+def _one_gradient_kernels(staged, q):
+    """(CUDA kernels, device µs) of one batched value-and-gradient of
+    ``staged.potential`` at the (C, d) positions ``q``, traced twice: the
+    same gradient launches the same kernels, so two sessions that differ
+    fail (one of them lost events)."""
+    from fugue_tpu_torch.inference.hmc import batched_force
+
+    force = batched_force(staged.potential)
+    force(q)  # warm
+    first, ks = (traced_kernels(lambda: force(q))[1] for _ in range(2))
+    check(len(first) == len(ks), f"one gradient traced as {len(first)} and {len(ks)} kernels")
+    return len(ks), sum(e.time_range.elapsed_us() for e in ks)
+
+
+def eight_schools_log_joint64(mu, tau, theta):
+    """The DSL eight-schools' log joint in float64 numpy on a (mu, tau) grid,
+    the eight theta_raw values given: mu ~ N(0, 5), tau ~ LogNormal(0.5, 1),
+    theta_j ~ N(0, 1), y_j ~ N(mu + tau theta_j, sigma_j)."""
+    def log_n(x, m, s):
+        return -0.5 * ((x - m) / s) ** 2 - np.log(s) - 0.5 * np.log(2 * np.pi)
+
+    y, sigma = np.asarray(EIGHT_SCHOOLS_Y), np.asarray(EIGHT_SCHOOLS_SIGMA)
+    out = log_n(mu, 0.0, 5.0) + log_n(np.log(tau), 0.5, 1.0) - np.log(tau)
+    out = out + np.sum(log_n(theta, 0.0, 1.0))
+    for j in range(8):
+        out = out + log_n(y[j], mu + tau * theta[j], sigma[j])
+    return out
+
+
+def phase_serve_eight_schools(direct_grad_evals_per_s=None):
+    """Non-centred eight-schools written in the DSL (18 sites): ChEES over
+    HTTP at 1,024 chains, and the 512 x 512 log-joint grid."""
+    import fugue_tpu_torch as ftt
+
+    n_chains, n_warmup, n_steps = 1024, 200, 200
+    row = {"phase": "serve_eight_schools", "card": card_line(), "chains": n_chains,
+           "warmup": n_warmup, "steps": n_steps}
+    with Rpc() as rpc:
+        mid = rpc("compile", source=EIGHT_SCHOOLS_DSL,
+                  data={"y": EIGHT_SCHOOLS_Y, "sigma": EIGHT_SCHOOLS_SIGMA})["model_id"]
+        staged = rpc.service._models[mid][2]
+        check(staged.sites[0].address == "mu" and staged.dim == 10,
+              f"serve_eight_schools sites {[s.address for s in staged.sites]}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new = rpc("chees.new", model_id=mid, n_chains=n_chains, n_warmup=n_warmup)
+        row["chees_new_s"] = time.perf_counter() - t0
+        mu, leapfrogs, walls = [], 0, []
+        for _ in range(n_steps):
+            t0 = time.perf_counter()
+            out = rpc("chees.step", session_id=new["session_id"])
+            walls.append(time.perf_counter() - t0)
+            mu.append(np.asarray(out["positions"])[:, 0])  # mu is z's first coordinate
+            leapfrogs += out["n_leapfrog"]
+        wall = sum(walls)
+        mu = torch.as_tensor(np.stack(mu, axis=1))  # (chains, steps)
+        post = {"mu_mean": mu.mean().item(), "mu_sd": mu.std().item(),
+                "ess_mu": ftt.ess_multichain(mu).item(),
+                "split_rhat_mu": ftt.split_r_hat(mu).item()}
+        mcse = post["mu_sd"] / math.sqrt(post["ess_mu"])
+        post["mu_z"] = ((post["mu_mean"] - EIGHT_SCHOOLS_MU_MEAN)
+                        / math.hypot(mcse, EIGHT_SCHOOLS_MU_MCSE))
+        grad_evals = n_chains * (leapfrogs + n_steps)  # bench_chees's count
+        row.update(post, step_size=new["step_size"], trajectory_length=new["trajectory_length"],
+                   mean_leapfrog=leapfrogs / n_steps, wall_s=wall,
+                   grad_evals_per_s=grad_evals / wall,
+                   direct_grad_evals_per_s=direct_grad_evals_per_s,
+                   ms_per_request=statistics.median(walls) * 1e3,
+                   ms_per_request_mean=1e3 * wall / n_steps)
+        check(abs(post["mu_z"]) < 5.0, f"serve_eight_schools mu mean {post['mu_mean']} is "
+              f"{post['mu_z']:.2f} MC-SE from {EIGHT_SCHOOLS_MU_MEAN}")
+
+        # kernels per batched gradient: the DSL model against the hand-written one
+        q = rpc.service._sessions[new["session_id"]].positions
+        hand = ftt.stage(eight_schools_model("cuda"), device="cuda")
+        k_dsl, us_dsl = _one_gradient_kernels(staged, q)
+        k_hand, us_hand = _one_gradient_kernels(hand, q)
+        step, out = rpc.device_time("chees.step", session_id=new["session_id"])
+        row.update(kernels_per_gradient_dsl=k_dsl, device_us_per_gradient_dsl=us_dsl,
+                   kernels_per_gradient_hand=k_hand, device_us_per_gradient_hand=us_hand,
+                   one_chees_step=dict(step, n_leapfrog=out["n_leapfrog"]))
+        # each leapfrog of the traced request takes one batched gradient
+        check(step["kernels"] >= out["n_leapfrog"] * k_dsl,
+              f"serve_eight_schools: a chees.step of {out['n_leapfrog']} leapfrogs traced as "
+              f"{step['kernels']} kernels, {k_dsl} per gradient")
+
+        # the log-joint grid over (mu, tau): 262,144 evaluations in one request
+        res = 512
+        theta = np.random.default_rng(3).normal(size=8)
+        fixed = {f"theta_raw#{j}": float(theta[j]) for j in range(8)}
+        t0 = time.perf_counter()
+        g = rpc("grid", model_id=mid, x_address="mu", y_address="tau", x_range=[-10.0, 20.0],
+                y_range=[0.05, 20.0], resolution=res, fixed=fixed)
+        grid_ms = 1e3 * (time.perf_counter() - t0)
+        z = np.asarray(g["log_joint"], np.float64)
+        xs, ys = np.asarray(g["x"], np.float64), np.asarray(g["y"], np.float64)
+        ref = eight_schools_log_joint64(xs[None, :], ys[:, None], theta)
+        err = float(np.max(np.abs(z - ref) / np.maximum(1.0, np.abs(ref))))
+        row.update(grid_resolution=res, grid_ms=grid_ms, grid_max_rel_err=err)
+        check(z.shape == (res, res) and np.isfinite(z).all(), f"grid {z.shape}")
+        check(err < 3e-5, f"serve_eight_schools grid: {err} from float64 (float32 tolerance 3e-5)")
+    emit(row)
+
+
+def kalman_filter(ys, q, r, p0=1.0):
+    """The exact filtered means and variances of x_t = x_{t-1} + N(0, q²),
+    y_t ~ N(x_t, r²), x_0 ~ N(0, p0)."""
+    m, p, out = 0.0, p0, []
+    for y in ys:
+        p = p + q * q
+        k = p / (p + r * r)
+        m, p = m + k * (y - m), (1.0 - k) * p
+        out.append((m, p))
+    return out
+
+
+def phase_serve_pf():
+    """pf.new at 2^20 particles, 200 pf.observe requests on a random walk,
+    against the exact Kalman filter; both SMC kernels against their plain
+    versions on one observe's own inputs; one observe under device_trace."""
+    import glob
+    import re
+    import tempfile
+    import warnings
+
+    from fugue_tpu_torch.dsl import sessions
+    from fugue_tpu_torch.ops import kernels as K
+    from fugue_tpu_torch.utils.profiling import device_trace, is_priming_kernel
+
+    n, q, r, steps = 1 << 20, 0.3, 0.5, 200
+    rng = np.random.default_rng(17)
+    x = rng.normal() + np.cumsum(rng.normal(0.0, q, steps))
+    ys = x + rng.normal(0.0, r, steps)
+    exact = kalman_filter(ys, q, r)
+    row = {"phase": "serve_pf", "card": card_line(), "particles": n, "q": q, "r": r,
+           "observations": steps}
+    with Rpc() as rpc:
+        sid = rpc("pf.new", n_particles=n, process_sd=q, obs_sd=r)["session_id"]
+        reset_launches()
+        walls, worst = [], 0.0
+        for t, y in enumerate(ys):
+            t0 = time.perf_counter()
+            est = rpc("pf.observe", session_id=sid, y=float(y))
+            walls.append(time.perf_counter() - t0)
+            m, p = exact[t]
+            se = math.sqrt(p * (1.0 / est["ess"] + 1.0 / n))
+            worst = max(worst, abs(est["mean"] - m) / se)
+        launches = read_launches()
+        reads = rpc.host_reads("pf.observe", session_id=sid, y=float(ys[-1]))
+
+        # both kernels against their plain versions on the inputs one
+        # observe gives them at 2^20: logsumexp's three (the log-weights,
+        # twice them, the weights kept) and the resample's (log-weights, u0)
+        with recording(K, "plogsumexp") as lses, \
+                recording(sessions, "systematic_resample_from_u0") as draws:
+            rpc("pf.observe", session_id=sid, y=float(ys[-2]))
+        check(len(lses) == 3 and len(draws) == 1,
+              f"serve_pf: {len(lses)} logsumexp and {len(draws)} resample calls in one observe")
+        (lw, u0), _ = draws[0]
+        check(lw.dtype == torch.float32 and lw.shape == (n,), f"serve_pf: log-weights {lw.shape}")
+        row["kernels_vs_plain_on_an_observe"] = {
+            "logsumexp": [_lse_f32_check(x, f"serve_pf logsumexp {i}")
+                          for i, ((x,), _) in enumerate(lses)],
+            "systematic_resample": [
+                _resample_f32_contract(lw, lw.double().cpu().numpy(), u0v,
+                                       f"serve_pf resample u0={u0v}")
+                for u0v in (u0.item(), 0.37, 0.0, 1.0 - 2.0**-24)]}
+
+        # one observe under the port's device_trace (a session that lost
+        # every priming kernel is traced again): the trace holds each kernel
+        # of the launch contract, and as many kernels as a CUDA-only session
+        # of the next observe (whose device events also hold the copies and
+        # fills)
+        def trace_once():
+            with tempfile.TemporaryDirectory() as tmp:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    with device_trace(tmp):
+                        rpc("pf.observe", session_id=sid, y=float(ys[-1]))
+                files = glob.glob(os.path.join(tmp, "*.json"))
+                check(len(files) == 1, f"serve_pf: device_trace wrote {files}")
+                with open(files[0]) as f:
+                    events = json.load(f)["traceEvents"]
+            if any("lost every priming kernel" in str(w.message) for w in caught):
+                return None
+            return [e for e in events if e.get("cat") == "kernel"
+                    and not is_priming_kernel(e["name"])]
+
+        kernels = whole_session(trace_once, "serve_pf device_trace")
+        named = {k: sum(bool(re.search(rf"\b{k}<", e["name"])) for e in kernels)
+                 for k in ("lse_partial", "lse_finish", "lse_parts", "emit")}
+        _, again = traced_kernels(lambda: rpc("pf.observe", session_id=sid, y=float(ys[-1])))
+        again = [e for e in again if not e.name.startswith(("Memcpy", "Memset"))]
+        device_us = sum(e["dur"] for e in kernels)
+    row.update(ms_per_observe=statistics.median(walls) * 1e3,
+               ms_per_observe_mean=1e3 * sum(walls) / steps, worst_z=worst,
+               launches={k: launches[k] for k in ("lse", "resample")},
+               host_reads_per_observe=reads, trace_kernel_counts=named,
+               traced_observe={"kernels": len(kernels), "kernels_cuda_only_session": len(again),
+                               "device_us": device_us,
+                               "idle_share": 1.0 - 1e-3 * device_us
+                               / (statistics.median(walls) * 1e3)})
+    emit(row)
+    check(worst < 5.0, f"serve_pf: a filtered mean is {worst:.2f} SE from the Kalman filter's")
+    check(launches["lse"] == 3 * steps and launches["resample"] == steps,
+          f"serve_pf: {launches} in {steps} observes (want 3 lse + 1 resample each)")
+    check(reads == 1, f"serve_pf: {reads} host reads in one observe")
+    check(named == {"lse_partial": 3, "lse_finish": 3, "lse_parts": 1, "emit": 1},
+          f"serve_pf: the traced observe's kernels {named}, want logsumexp's two 3 times "
+          "and the resample's two once")
+    check(len(kernels) == len(again),
+          f"serve_pf: {len(kernels)} kernels in the device_trace session, {len(again)} in the next")
+    return row["launches"]
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2532,62 +3074,61 @@ def main(argv=None) -> int:
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     import fugue_tpu_torch  # noqa: F401  (fails outside a checkout)
 
-    kernel_rows = launches = smc_rows = nuts_launches = chees_launches = vi_launches = None
-    eight_schools_run = None
+    started = time.perf_counter()
+    walls = {}  # seconds per phase, for the smoke's time budget
+
+    def run(name, fn, *args):
+        """``fn(*args)`` when phase ``name`` was asked for, timed; else None."""
+        if name not in phases:
+            return None
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        emit({"phase_seconds": {name: walls[name]}})
+        return out
+
     smc_launches = {"lse": 0, "resample": 0}
-    if "build" in phases:
-        phase_build()
-    if "kernel" in phases:
-        kernel_rows = phase_kernel()
-    if "eight_schools" in phases:
-        eight_schools_run = phase_eight_schools()
-    if "gaussian_plate" in phases:
-        launches = phase_gaussian_plate()
-    if "smc_kernels" in phases:
-        smc_rows = phase_smc_kernels()
-    if "smc" in phases:
-        _add_launches(smc_launches, phase_smc())
-    if "nuts_eight_schools" in phases:
-        phase_nuts_eight_schools()
-    if "nuts_plate" in phases:
-        nuts_launches = phase_nuts_plate()
+
+    def add_smc(launches):
+        if launches is not None:
+            _add_launches(smc_launches, launches)
+
+    run("build", phase_build)
+    kernel_rows = run("kernel", phase_kernel)
+    eight_schools_run = run("eight_schools", phase_eight_schools)
+    launches = run("gaussian_plate", phase_gaussian_plate)
+    smc_rows = run("smc_kernels", phase_smc_kernels)
+    add_smc(run("smc", phase_smc))
+    run("nuts_eight_schools", phase_nuts_eight_schools)
+    nuts_launches = run("nuts_plate", phase_nuts_plate)
     for name, phase in (("smc_coin", phase_smc_coin), ("smc_mixture", phase_smc_mixture),
                         ("smc_discrete", phase_smc_discrete)):
-        if name in phases:
-            _add_launches(smc_launches, phase())
-    if "chees_eight_schools" in phases:
-        phase_chees_eight_schools()
-    if "chees_plate" in phases:
-        chees_launches = phase_chees_plate()
-    if "mh_coin" in phases:
-        phase_mh_coin()
-    if "mh_hierarchical" in phases:
-        phase_mh_hierarchical()
-    if "vi_hierarchical" in phases:
-        phase_vi_hierarchical()
-    if "vi_plate" in phases:
-        vi_launches = phase_vi_plate()
-    if "vi_scale" in phases:
-        phase_vi_scale()
-    if "abc_rejection" in phases:
-        phase_abc_rejection()
-    if "abc_smc" in phases:
-        _add_launches(smc_launches, phase_abc_smc())
+        add_smc(run(name, phase))
+    chees_rate = run("chees_eight_schools", phase_chees_eight_schools)
+    chees_launches = run("chees_plate", phase_chees_plate)
+    for name, phase in (("mh_coin", phase_mh_coin), ("mh_hierarchical", phase_mh_hierarchical),
+                        ("vi_hierarchical", phase_vi_hierarchical)):
+        run(name, phase)
+    vi_launches = run("vi_plate", phase_vi_plate)
+    run("vi_scale", phase_vi_scale)
+    run("abc_rejection", phase_abc_rejection)
+    add_smc(run("abc_smc", phase_abc_smc))
     for name, phase in (("logistic_scale", phase_logistic_scale),
                         ("laplace_regression", phase_laplace_regression),
                         ("marginal_gmm", phase_marginal_gmm), ("gibbs_mixed", phase_gibbs_mixed),
                         ("ess_gp", phase_ess_gp), ("pt_bimodal", phase_pt_bimodal)):
-        if name in phases:
-            phase()
-    if "loo_eight_schools" in phases:
-        phase_loo_eight_schools(eight_schools_run)
+        run(name, phase)
+    run("loo_eight_schools", phase_loo_eight_schools, eight_schools_run)
     eight_schools_run = None
-    if "validation_conjugate" in phases:
-        _add_launches(smc_launches, phase_validation_conjugate())
+    add_smc(run("validation_conjugate", phase_validation_conjugate))
     for name, phase in (("sbc_normal", phase_sbc_normal),
                         ("mh_transdimensional", phase_mh_transdimensional)):
-        if name in phases:
-            phase()
+        run(name, phase)
+    add_smc(run("serve_coin", phase_serve_coin))
+    run("serve_eight_schools", phase_serve_eight_schools, chees_rate)
+    add_smc(run("serve_pf", phase_serve_pf))
+    emit({"phase_seconds": walls, "main_seconds": time.perf_counter() - started,
+          "profiler_sessions": TRACES})
 
     print(card_line(), flush=True)
     if set(phases) != set(PHASES):
@@ -2607,9 +3148,10 @@ def main(argv=None) -> int:
               kernel_rows[MAIN_SHAPE],
               launches["nll"] + nuts_launches["nll"] + chees_launches["nll"]
               + vi_launches["nll"]),
-        # the SMC kernels' calls on their seven paths: the smc phase's three
-        # runs, the coin (two runs), mixture and discrete phases, abc_smc and
-        # the validation harness's smc adapter (two runs)
+        # the SMC kernels' calls on their nine paths: the smc phase's three
+        # runs, the coin (two runs), mixture and discrete phases, abc_smc,
+        # the validation harness's smc adapter (two runs), and the service's
+        # smc.run (serve_coin) and pf.observe (serve_pf)
         entry("logsumexp", "lse", "logsumexp", smc_rows[("lse", N_PARTICLES)],
               smc_launches["lse"]),
         entry("systematic_resample", "resample", "systematic_resample",

@@ -29,6 +29,10 @@ HMC-within-Gibbs (``gibbs_chain``), elliptical slice sampling
 validation harness, simulation-based calibration (``sbc``) and
 trans-dimensional MH (``adaptive_mcmc_chain_dynamic``); and the bf16
 design-matrix products of ``ops.linalg`` (``matmul_bf16x2_fastgrad``).
+The serving surface: the DSL compiler and its sessions (``dsl``), the
+JSON-RPC service (``serve``), ``.npz`` checkpoints
+(``runtime.checkpoint``), profiling (``utils.profiling``) and the C++ host
+backend of the convergence estimators (``utils.native``).
 Entry points run on the card (``device="cuda"``) unless the caller names
 another device. Module paths and public names mirror ``fugue_tpu``. The
 package imports no JAX.
@@ -39,6 +43,7 @@ __version__ = "0.1.0"
 from .errors import (
     ErrorCategory,
     ErrorCode,
+    ErrorContext,
     FugueError,
     ModelStructureError,
     StagingError,
@@ -151,7 +156,7 @@ from .inference.mcmc_utils import (
     rank_normalized_split_r_hat,
     split_r_hat,
 )
-from .inference.mh import MHResult, adaptive_mcmc_chain
+from .inference.mh import MHResult, MHState, adaptive_mcmc_chain, mh_step
 from .inference.nuts import NUTSConfig, NUTSResult, NutsSession, nuts_chain, nuts_transition
 from .inference.predictive import posterior_predictive, predictive
 from .inference.smc import SMCConfig, SMCResult, adaptive_smc, importance_reweight
@@ -184,5 +189,5 @@ from .runtime.interpreters import (
     score_given_trace_safe,
     score_given_trace_strict,
 )
-from .runtime.staging import StagedModel, stage
+from .runtime.staging import LogDensityParts, Site, StagedModel, stage
 from .runtime.trace import Choice, Trace

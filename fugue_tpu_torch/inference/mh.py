@@ -67,9 +67,12 @@ def init_mh_state(staged: StagedModel, seed: int, n_chains: int, initial_scale=0
     """``n_chains`` prior draws with their log joints, from ONE batched
     model run, and per-chain adaptation state (n_chains, n_sites).
     ``initial_scale``: a float, or an ``{address: scale}`` dict of per-site
-    scales (unlisted sites use 0.5)."""
+    scales (unlisted sites use 0.5). The proposal tables are copied to
+    the device here, so that no transition copies from the host."""
     latents, log_joint = staged.sample_prior_batch_scored(seed, n_chains)
     dt, dev = settings.real_dtype(), staged.device
+    if staged.constrained_dim > 0:
+        _meta_tensors(staged, dt)
     if isinstance(initial_scale, dict):
         scales = torch.tensor([float(initial_scale.get(s.address, 0.5)) for s in staged.sites],
                               dtype=dt, device=dev)

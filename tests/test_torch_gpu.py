@@ -27,7 +27,10 @@ The split-bf16 products return float32 on the card (the ``out_dtype``
 GEMM route) within 1e-3 relative of a float64 product of the same bf16
 data, equal to their CPU versions, and a batched gradient over C chains
 makes three GEMMs whatever C is. ``Categorical.uniform`` and numpy
-parameters sample and score inside a model run on the card.
+parameters sample and score inside a model run on the card. The JSON-RPC
+service runs on the card by default (its MH session reads back once per
+``mh.step`` request, its SMC and particle filter launch the SMC kernels),
+and a DSL index past the end of an array clamps on the card as on the CPU.
 """
 
 import math
@@ -676,3 +679,79 @@ def test_categorical_uniform_and_numpy_parameters_in_a_model_on_the_card():
     torch.testing.assert_close(lj.cpu(), want, rtol=1e-12, atol=1e-12)
     res = ftt.adaptive_mcmc_chain(0, staged=staged, n_samples=10, n_warmup=10, n_chains=64)
     assert res.samples["k"].device.type == "cuda"
+
+
+def test_service_runs_on_the_card():
+    """FugueService() defaults to the card: the compiled model's data, the
+    MH session, the particle filter and SMC live there, the SMC kernels
+    launch, and mh.step reads back once whatever n is."""
+    from fugue_tpu_torch.serve import FugueService
+
+    svc = FugueService()
+
+    def call(method, **params):
+        out = svc.handle({"method": method, "params": params})
+        assert "error" not in out, out
+        return out["result"]
+
+    mid = call("compile", source='let p <- sample("p", beta(2.0, 2.0));'
+               'for i in 0..6 { observe(("y", i), bernoulli(p), flips[i]); } return p;',
+               data={"flips": [1, 1, 0, 1, 1, 0]})["model_id"]
+    assert svc._models[mid][2].device.type == "cuda"
+    sid = call("mh.new", model_id=mid, n_chains=256)["session_id"]
+    assert svc._sessions[sid].carry["state"].log_joint.is_cuda
+    reads = [_host_syncs(lambda n=n: call("mh.step", session_id=sid, n=n)) for n in (1, 20)]
+    assert reads == [1, 1]  # the first request included
+    before = dict(K.LAUNCHES)
+    call("smc.run", model_id=mid, n_particles=4096)
+    pf = call("pf.new", n_particles=4096)["session_id"]
+    est = call("pf.observe", session_id=pf, y=0.3)
+    assert K.LAUNCHES["lse"] > before["lse"] + 3 and K.LAUNCHES["resample"] > before["resample"]
+    assert math.isfinite(est["mean"]) and est["ess"] > 0
+    assert svc.handle({"method": "vi.run", "params": {
+        "model_id": mid, "posterior_draws": 0}})["error"]["code"] == -32602
+
+
+def test_dsl_index_is_clamped_on_the_card():
+    """A sampled category past the end of the indexed array clamps on the
+    card (no device-side assert) and equals the CPU in float64."""
+    from fugue_tpu_torch.dsl.compiler import compile_model
+
+    src = ('let z <- sample("z", categorical(probs)); let mu <- sample("mu", normal(0.0, 1.0));'
+           'observe("y", normal(mu + centers[z] - centers[-1.0], 1.0), 0.5); return z')
+    data = {"probs": [0.25, 0.25, 0.25, 0.25], "centers": [-2.0, 0.5, 3.0]}
+    z = torch.tensor([0, 1, 2, 3, 3, 0])
+    mu = torch.linspace(-1.0, 1.0, 6, dtype=torch.float64)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cm = compile_model(src)
+        staged = ftt.stage(cm.build(data, device=dev), device=dev)
+        out[dev] = vmap(staged.log_joint)({"z": z.to(dev), "mu": mu.to(dev)}).cpu()
+        assert cm.take_warnings() == []
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out["cuda"]).all())
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-12, atol=1e-12)
+
+
+def test_device_trace_is_primed_and_holds_the_block(tmp_path):
+    """utils.profiling.device_trace on the card: the trace keeps at least
+    one priming kernel (no warning) and every kernel of the block, here the
+    two of one logsumexp launch."""
+    import json
+    import warnings
+
+    from fugue_tpu_torch.utils.profiling import PRIMING_KERNELS, device_trace, is_priming_kernel
+
+    x = torch.randn(1 << 20, device="cuda")
+    K.plogsumexp(x)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        with device_trace(str(tmp_path)):
+            K.plogsumexp(x)
+    (path,) = tmp_path.glob("trace_*.json")
+    kernels = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
+               if e.get("cat") == "kernel"]
+    primed = sum(is_priming_kernel(n) for n in kernels)
+    assert 1 <= primed <= PRIMING_KERNELS
+    assert sorted(n.split("<")[0].split("::")[-1] for n in kernels
+                  if not is_priming_kernel(n)) == ["lse_finish", "lse_partial"]

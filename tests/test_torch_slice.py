@@ -6,7 +6,9 @@
   tolerance 1e-10).
 - The port imports no JAX: a static walk over its sources with ``ast``.
 - The flat API is the slices' subset of fugue_tpu's.
-- Every entry point runs on the card unless the caller names a device; the
+- Every entry point (the serving surface's too: the service, ``serve``, the
+  DSL's ``build`` and sessions) runs on the card unless the caller names a
+  device; the
   batched ``simulate_batch``/``replay_partial_batch`` run on their staged
   model's device, which is the card unless the caller names another.
 """
@@ -24,7 +26,9 @@ import torch
 import __graft_entry__
 import fugue_tpu as ft
 import fugue_tpu_torch as ftt
-from fugue_tpu_torch import interop, settings
+from fugue_tpu_torch import interop, serve, settings
+from fugue_tpu_torch.dsl import sessions
+from fugue_tpu_torch.dsl.compiler import CompiledModel
 from fugue_tpu_torch.interop import hmc_state_from_numpy, tensor_from_numpy
 
 import torch_parity_models as models
@@ -54,7 +58,8 @@ FLAT_API = ("sample", "observe", "factor", "guard", "Normal", "LogNormal", "stag
             "psis_loo", "compare", "ValidationResult", "ConjugateNormalConfig",
             "ConjugateBetaBernoulliConfig", "ks_two_sample", "validate_conjugate_normal",
             "validate_beta_bernoulli", "SBCResult", "sbc", "DynamicMHResult",
-            "adaptive_mcmc_chain_dynamic")
+            "adaptive_mcmc_chain_dynamic", "ErrorContext", "LogDensityParts", "MHState", "Site",
+            "mh_step")
 ENTRY_POINTS = (ftt.stage, ftt.StagedModel, ftt.hmc_chain, ftt.HmcSession, ftt.nuts_chain,
                 ftt.NutsSession, ftt.adaptive_smc, ftt.importance_reweight, ftt.chees_chain,
                 ftt.CheesSession, ftt.adaptive_mcmc_chain, interop.tensor_from_numpy,
@@ -68,7 +73,9 @@ ENTRY_POINTS = (ftt.stage, ftt.StagedModel, ftt.hmc_chain, ftt.HmcSession, ftt.n
                 ftt.map_estimate, ftt.marginalize, ftt.gibbs_chain, ftt.ess_chain, ftt.pt_chain,
                 ftt.pointwise_log_likelihood, ftt.validate_conjugate_normal,
                 ftt.validate_beta_bernoulli, ftt.sbc, ftt.adaptive_mcmc_chain_dynamic,
-                interop.gibbs_state_from_numpy, interop.pt_state_from_numpy)
+                interop.gibbs_state_from_numpy, interop.pt_state_from_numpy,
+                serve.FugueService, CompiledModel.build, sessions.MhSession,
+                sessions.ParticleFilter, sessions.smc_run, sessions.log_joint_grid, serve.serve)
 
 
 @pytest.fixture(autouse=True)
