@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's HMC, SMC, NUTS, ChEES, MH, VI, ABC and other engines' main paths, and its JSON-RPC service, on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's HMC, SMC, NUTS, ChEES, MH, VI, ABC and other engines' main paths, its JSON-RPC service and its multi-device layer, on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py                      # all phases
     python3 chip_smoke.py --phases build,kernel
@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases logistic_scale,laplace_regression,marginal_gmm,gibbs_mixed
     python3 chip_smoke.py --phases ess_gp,pt_bimodal,validation_conjugate,sbc_normal,mh_transdimensional
     python3 chip_smoke.py --phases build,serve_coin,serve_eight_schools,serve_pf
+    python3 chip_smoke.py --phases build,sharded_hmc,sharded_smc,sharded_vi_plate,two_ranks,serve_sharded
 
 Phases (each prints JSON lines; any failure raises and exits non-zero):
 
@@ -18,7 +19,8 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  fugue_tpu_torch/csrc, one nvcc per source, all at once.
 2. kernel        the Gaussian-plate value-and-grad kernel against its plain
                  PyTorch version and a float64 reference, in float32, at
-                 (C, N) = (1, 2^24), (64, 2^20), (3, 2^20 + 17); gates for
+                 (C, N) = (1, 2^24), (64, 2^20), (64, 2^19) (the two ranks'
+                 VI slices), (3, 2^20 + 17); gates for
                  an unaligned y[k:], data far from 0, an outlier first row
                  and mu far from ybar (float32, and float64 to 1e-12 of
                  plain), non-finite rows and parameters (the plain
@@ -52,7 +54,8 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  + 3 logsumexp, stages - 1 resample).
 7. nuts_eight_schools  ftt.nuts_chain at bench_nuts's shape: 1024 chains,
                  NUTSConfig() (max_depth 8, target 0.8, diagonal mass),
-                 float32, 200 warmup + 200 samples; gates on split-R-hat,
+                 float32, 100 warmup + 100 samples (cut from 200 + 200 for
+                 the multi-device phases' time); gates on split-R-hat,
                  divergence rate and the posterior mean of mu (the HMC
                  phase's constant: the same posterior). Reports
                  grad-evals/s, ESS/s, mean tree depth, the lock-step leaves
@@ -205,7 +208,7 @@ block=False)`` in this process and POST JSON-RPC requests over urllib:
                  resample launches; hmc.step and nuts.step (warmup 100)
                  recorded; vi.run with both guides, 600 iterations
                  (tests/test_serve.py's, and its gates); vi.run's two
-                 -32602 repairs; hmc.sharded -32601.
+                 -32602 repairs; hmc.sharded on an unknown model -32602.
 32. serve_eight_schools  non-centred eight-schools in the DSL (18 sites,
                  bench.py's priors): chees.new at 1,024 chains, 200 warmup,
                  then 200 chees.step requests; mean mu within 5 MC-SE of the
@@ -222,6 +225,49 @@ block=False)`` in this process and POST JSON-RPC requests over urllib:
                  read per observe; one observe under
                  utils.profiling.device_trace, whose trace names both
                  kernels.
+
+Phases 34-38 drive fugue_tpu_torch.parallel, the multi-device layer. The
+card is one GPU: phases 34-36 and 38 run one NCCL rank (the backend and
+code path of one rank per GPU), phase 37 two gloo ranks in two processes
+on the card (NCCL refuses two ranks on one device):
+
+34. sharded_hmc  parallel.sharded_hmc_chain on eight-schools (1024 chains,
+                 L=32, 200 + 200) and the plate (64 x 2^20, L=16, 100 + 100,
+                 through the value-and-grad kernel, held against its plain
+                 version on one of the run's own calls), each with its
+                 single-device phase's gates and ms per transition beside
+                 that phase's; exactly one collective per warmup transition
+                 plus the run's 8 others, none staged through the host, and
+                 no host sync added to 10 warmup transitions of the drive
+                 against the single-device drive (_host_syncs); the NCCL
+                 drive's ms per warmup transition over the single-device
+                 drive's, both warm, timed in turns from the same start.
+35. sharded_smc  parallel's adaptive_smc(mesh=) on the hierarchical model at
+                 131,072 particles, 3 MH moves: the smc phase's gates and
+                 launch contracts, and both kernels against their plain
+                 versions on the gathered (N,) log-weights of the run's last
+                 resample.
+36. sharded_vi_plate  parallel.sharded_vi in data mode (the plate likelihood
+                 a sharded factor), the vi_plate configuration and gates;
+                 one plate-kernel call and one all-reduce per iteration, one
+                 host sync per segment; the kernel held against its plain
+                 version on one of the run's own calls.
+37. two_ranks    two processes (this script with --two-ranks-worker), one
+                 gloo rank each: HMC on eight-schools at 2 x 512 chains (L=32,
+                 100 + 100), SMC at 131,072 particles through the ring, VI's
+                 data mode at 2 x 2^19 rows; results bitwise the same on both
+                 ranks, the eight_schools, smc and vi_plate gates, the launch
+                 contracts per rank, gloo's host stagings counted; the median
+                 ms of one ring gather of the SMC run's particles; the plate
+                 kernel held against its plain version on one VI call of
+                 each rank (2^19 rows).
+38. serve_sharded  hmc.sharded over HTTP on the DSL coin flip (256 chains,
+                 L=32, 25 + 25): mean within 5 sd/sqrt(chains) of 20/31, sd within
+                 10% of the exact, split-R-hat < 1.05; vi.run's host syncs
+                 exactly one more than the same optimization's called
+                 directly (one read for every site's summaries); a sharded
+                 checkpoint of a sharded HMC state restored into its
+                 template resumes bitwise.
 
 Then it prints the card's name and power limit, one JSON line describing
 the kernels, and as the last line
@@ -252,7 +298,8 @@ PHASES = ("build", "kernel", "eight_schools", "gaussian_plate", "smc_kernels", "
           "vi_hierarchical", "vi_plate", "vi_scale", "abc_rejection", "abc_smc",
           "logistic_scale", "laplace_regression", "marginal_gmm", "gibbs_mixed", "ess_gp",
           "pt_bimodal", "loo_eight_schools", "validation_conjugate", "sbc_normal",
-          "mh_transdimensional", "serve_coin", "serve_eight_schools", "serve_pf")
+          "mh_transdimensional", "serve_coin", "serve_eight_schools", "serve_pf",
+          "sharded_hmc", "sharded_smc", "sharded_vi_plate", "two_ranks", "serve_sharded")
 SOURCES = ("normal_loglik_sum", "logsumexp", "systematic_resample")
 REPLACES = {
     # _nll_fwd_kernel and _nll_bwd_kernel, one value-and-grad kernel here
@@ -307,6 +354,7 @@ VI_HIERARCHICAL = {  # final ELBO: the mean of the last 200 iterations
     "mu_loc": {"MEAN": 0.571377731859684, "RUN_SD": 0.0063165766221502115},
 }
 VI_PLATE_SEGMENTS, VI_PLATE_ITERATIONS = 10, 100  # the plate's VI, chained through resume=
+VI_PLATE_MC = 64  # its MC samples per iteration: the plate kernel's chain count
 VI_PLATE = {  # vi_plate_stats after the 10 x 100 iterations
     "mu_loc_z": {"MEAN": 0.01169378898233707, "RUN_SD": 0.13296648534538838},
     "sigma_median_z": {"MEAN": -0.1833272354415104, "RUN_SD": 0.10368903609565289},
@@ -538,6 +586,30 @@ def _hold_plate_f64(K, y, mu, sigma, what):
     return rel
 
 
+# each kernel's largest |kernel - plain| on the inputs of its main-path
+# calls, by the call's name: the kernels line reports the largest of
+# these and the kernel phase's row
+PATH_HOLDS = {"nll": {}, "lse": {}, "resample": {}}
+
+
+def _path_plate_call(calls, n_chains, what):
+    """(y, mu, sigma) of the last recorded plate-kernel call of a run
+    (``recording(K, "_value_and_grad")``) at ``n_chains`` chains whose
+    results are finite (a divergent trajectory's infinite values are
+    held in the kernel phase's special cases instead)."""
+    for args, out in reversed(calls):
+        if args[1].numel() == n_chains and all(bool(torch.isfinite(o).all()) for o in out):
+            return tuple(t.detach() for t in args)
+    check(False, f"{what}: no finite plate-kernel call at {n_chains} chains among {len(calls)}")
+
+
+def _hold_path_plate(K, y, mu, sigma, what):
+    """``_hold_plate_f32`` on a main-path call's own inputs, recorded."""
+    errs = _hold_plate_f32(K, y, mu, sigma, what)
+    PATH_HOLDS["nll"][what] = max(e["kernel_vs_plain"] for e in errs.values())
+    return {"rows": y.numel(), "chains": mu.numel(), **errs}
+
+
 def _same_special(k, p):
     """The same NaN and +-inf pattern, and finite entries within 1e-5."""
     kf, pf = torch.isfinite(k), torch.isfinite(p)
@@ -552,7 +624,10 @@ def phase_kernel():
     from fugue_tpu_torch.ops import kernels as K
 
     results = {}
-    for c, n in ((1, 1 << 24), MAIN_SHAPE, (3, (1 << 20) + 17)):
+    # the one-chain long vector, the main path's shape, the two ranks' VI
+    # slices (a rank's half of the rows) and an odd length
+    for c, n in ((1, 1 << 24), MAIN_SHAPE, (MAIN_SHAPE[0], MAIN_SHAPE[1] // 2),
+                 (3, (1 << 20) + 17)):
         y, mu, sigma = _plate_inputs(c, n, torch.float32, seed=c * 1000 + 7)
         row = {"phase": "kernel", "chains": c, "rows": n, "dtype": "float32",
                "tolerance": "per chain: |kernel-f64| <= max(|plain-f64|, eps32*|f64|), "
@@ -692,6 +767,7 @@ def phase_eight_schools():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     post = _eight_schools_posterior(res, n_chains, n_samples, "eight_schools mu")
+    SINGLE_DEVICE_MS["eight_schools"] = 1e3 * wall / (n_warmup + n_samples)
     grad_evals = n_chains * (n_warmup + n_samples) * (L + 1)
     emit({"phase": "eight_schools", "chains": n_chains, "warmup": n_warmup,
           "samples": n_samples, "n_leapfrog": L, "wall_s": wall,
@@ -711,12 +787,13 @@ def plate_data(n):
     return 1.5 + 2.0 * torch.randn(n, generator=g, device="cuda")
 
 
-def plate_model(y, runs=None):
-    """mu ~ N(0, 10), sigma ~ LogNormal(0, 1), the plate likelihood through
-    the CUDA kernel. ``runs[0]`` counts batched model evaluations."""
+def plate_arg_model(runs=None):
+    """mu ~ N(0, 10), sigma ~ LogNormal(0, 1), the plate likelihood of its
+    argument y through the CUDA kernel. ``runs[0]`` counts batched model
+    evaluations."""
     import fugue_tpu_torch as ftt
 
-    def plate():
+    def plate(y):
         if runs is not None:
             runs[0] += 1
         mu = ftt.sample("mu", ftt.Normal(0.0, 10.0))
@@ -724,6 +801,12 @@ def plate_model(y, runs=None):
         ftt.factor(ftt.pnormal_loglik_sum(y, mu, sigma))
 
     return plate
+
+
+def plate_model(y, runs=None):
+    """``plate_arg_model`` over ``y``, a model of no argument."""
+    plate = plate_arg_model(runs)
+    return lambda: plate(y)
 
 
 def _plate_posterior(res, y, n_chains, n_samples, what):
@@ -791,6 +874,7 @@ def phase_gaussian_plate():
                                         n_chains=n_chains, staged=staged))
     post = _plate_posterior(res, y, n_chains, n_samples, "plate")
     n_transitions = n_warmup + n_samples
+    SINGLE_DEVICE_MS["gaussian_plate"] = 1e3 * wall / n_transitions
     grad_evals = n_transitions * (L + 1)
     emit({"phase": "gaussian_plate", "chains": n_chains, "rows": n,
           "warmup": n_warmup, "samples": n_samples, "n_leapfrog": L,
@@ -1213,15 +1297,16 @@ def phase_smc_kernels():
     return rows
 
 
-def _smc_run(name, staged, n, seed, config, site="mu", phase="smc"):
-    """One ftt.adaptive_smc run, timed, with the kernels' launch counts set
-    to 0 just before and read just after; checks convergence, the weights
-    and both kernels' launch counts, and reports ``site``'s posterior."""
+def _smc_run(name, staged, n, seed, config, site="mu", phase="smc", mesh=None):
+    """One ftt.adaptive_smc run (over ``mesh``'s ranks when given), timed,
+    with the kernels' launch counts set to 0 just before and read just
+    after; checks convergence, the weights and both kernels' launch counts,
+    and reports ``site``'s posterior."""
     import fugue_tpu_torch as ftt
 
     reset_launches()
     t0 = time.perf_counter()
-    res = ftt.adaptive_smc(seed, n, staged=staged, config=config)
+    res = ftt.adaptive_smc(seed, n, staged=staged, config=config, mesh=mesh)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
@@ -1746,17 +1831,19 @@ def vi_plate_stats(params, y_np):
             "log_sigma_scale_ratio": scale(params["sigma"]) / sd_ls}
 
 
-def vi_plate_run(staged, seed):
+def vi_plate_run(staged, seed, optimize=None):
     """The vi_plate configuration: 64 MC samples at lr 0.05, VI_PLATE_SEGMENTS
     segments of VI_PLATE_ITERATIONS iterations chained through resume=,
-    which restarts Adam's moments and schedule; segment i takes seed + i."""
+    which restarts Adam's moments and schedule; segment i takes seed + i.
+    ``optimize`` (default ftt.optimize_meanfield_vi) runs a segment."""
     import fugue_tpu_torch as ftt
 
-    cfg = ftt.VIConfig(n_iterations=VI_PLATE_ITERATIONS, n_samples=64, learning_rate=0.05,
+    optimize = optimize or ftt.optimize_meanfield_vi
+    cfg = ftt.VIConfig(n_iterations=VI_PLATE_ITERATIONS, n_samples=VI_PLATE_MC, learning_rate=0.05,
                        plateau_window=10**9, check_every=VI_PLATE_ITERATIONS)
     res = None
     for i in range(VI_PLATE_SEGMENTS):
-        res = ftt.optimize_meanfield_vi(seed + i, staged=staged, config=cfg, resume=res)
+        res = optimize(seed + i, staged=staged, config=cfg, resume=res)
     return res
 
 
@@ -1776,6 +1863,7 @@ def phase_vi_plate():
     launches = read_launches()
     runs = model_runs[0]
     stats = vi_plate_stats(res.params, y_np)
+    SINGLE_DEVICE_MS["vi_plate"] = 1e3 * wall / n_iter
     row = {"phase": "vi_plate", "card": card_line(), "rows": MAIN_SHAPE[1], "mc_samples": 64,
            "iterations": n_iter, "segments": VI_PLATE_SEGMENTS, "wall_s": wall,
            "iterations_per_s": n_iter / wall, "ms_per_iteration": 1e3 * wall / n_iter,
@@ -2827,13 +2915,14 @@ def phase_serve_coin():
         check(abs(vi["fullrank"]["mean"] - p_exact) < 0.05, f"serve_coin vi fullrank: {vi}")
         row["vi"] = vi
 
-        # the repairs of the reference's IndexError / NaN, and the unported engine
+        # the repairs of the reference's IndexError / NaN, and the sharded
+        # engine on an unknown model (serve_sharded runs it)
         codes = {k: rpc.post("vi.run", model_id=mid, **{k: 0})["error"]["code"]
                  for k in ("n_iterations", "posterior_draws")}
-        codes["hmc.sharded"] = rpc.post("hmc.sharded", model_id=mid)["error"]["code"]
+        codes["hmc.sharded"] = rpc.post("hmc.sharded", model_id="model-0")["error"]["code"]
         row["error_codes"] = codes
         check(codes == {"n_iterations": -32602, "posterior_draws": -32602,
-                        "hmc.sharded": -32601}, f"serve_coin error codes {codes}")
+                        "hmc.sharded": -32602}, f"serve_coin error codes {codes}")
     emit(row)
     return row["smc"]["launches"]
 
@@ -3053,6 +3142,548 @@ def phase_serve_pf():
     return row["launches"]
 
 
+# ---------------------------------------------------------------------------
+# the multi-device layer (fugue_tpu_torch/parallel): NCCL at world size 1,
+# two gloo ranks on the one card, the sharded service and checkpoints
+# ---------------------------------------------------------------------------
+
+# The per-transition numbers of the single-device phases, for the sharded
+# phases to compare with (filled when those phases run).
+SINGLE_DEVICE_MS = {}
+TWO_RANKS_TIMEOUT_S = 420
+
+
+def _nccl_mesh():
+    """The chain mesh over the default process group: one NCCL rank on the
+    card (the group the port makes when none exists). The communicator's
+    first collective runs here, outside every count. NCCL allocates its
+    buffers outside PyTorch's caching allocator, so the memory that the
+    earlier phases left cached is returned to the card first (else NCCL's
+    first allocation fails once the cache holds the card)."""
+    from fugue_tpu_torch.parallel import make_chain_mesh
+    from fugue_tpu_torch.parallel.mesh import ShardLayout, cross_sum
+
+    if not torch.distributed.is_initialized():
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        emit({"phase": "nccl_group", "cached_gb_returned": reserved / 2**30,
+              "free_gb": free / 2**30, "total_gb": total / 2**30})
+    mesh = make_chain_mesh(device="cuda")
+    check(torch.distributed.get_backend() == "nccl" and mesh.size() == 1,
+          f"the card's mesh: backend {torch.distributed.get_backend()}, {mesh.size()} ranks")
+    cross_sum(torch.zeros((), device="cuda"), ShardLayout.of(mesh).group)
+    torch.cuda.synchronize()
+    return mesh
+
+
+def _reset_collectives():
+    from fugue_tpu_torch.parallel.mesh import COUNTS
+
+    torch.cuda.synchronize()
+    COUNTS.update(collectives=0, host_staged=0)
+
+
+def _read_collectives():
+    from fugue_tpu_torch.parallel.mesh import COUNTS
+
+    torch.cuda.synchronize()
+    return dict(COUNTS)
+
+
+# the collectives of one sharded HMC run besides one acceptance mean per
+# warmup transition: the ε₀ consensus, the Welford merge's two sums and the
+# five gathers of the result (positions, log joints, acceptances,
+# divergences, final positions)
+HMC_FIXED_COLLECTIVES = 1 + 2 + 5
+
+
+def _added_host_syncs(staged, cfg, group, n_chains, n_warmup):
+    """Host syncs of the sharded HMC drive and of the single-device drive
+    from the same positions and generator seed, n_warmup warmup
+    transitions each (the ε search's reads are the same in both)."""
+    from fugue_tpu_torch.inference.hmc import initial_positions, make_hmc_drive
+
+    q0 = initial_positions(staged, torch.Generator(device="cuda").manual_seed(5), n_chains,
+                           cfg.init)
+    out = {}
+    for name, grp in (("single_device", None), ("nccl", group)):
+        drive = make_hmc_drive(staged, cfg, n_chains, 0, n_warmup, chain_group=grp)
+        out[name] = _host_syncs(lambda: drive(q0, torch.Generator(device="cuda").manual_seed(6)))
+    return out
+
+
+def _interleaved_drive_ms(staged, cfg, group, n_chains, n_warmup=16, rounds=3):
+    """ms per drive (the ε search and n_warmup warmup transitions) of the
+    single-device drive and the NCCL drive from the same positions and
+    generator seed: each run once first, then timed in turns (single,
+    NCCL, NCCL, single) ``rounds`` times; NCCL over single per round."""
+    from fugue_tpu_torch.inference.hmc import initial_positions, make_hmc_drive
+
+    q0 = initial_positions(staged, torch.Generator(device="cuda").manual_seed(5), n_chains,
+                           cfg.init)
+    drives = {name: make_hmc_drive(staged, cfg, n_chains, 0, n_warmup, chain_group=grp)
+              for name, grp in (("single_device", None), ("nccl", group))}
+
+    def once(name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drives[name](q0, torch.Generator(device="cuda").manual_seed(6))
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    for name in drives:
+        once(name)
+    ms = {name: [] for name in drives}
+    ratios = []
+    for _ in range(rounds):
+        turn = {name: 0.0 for name in drives}
+        for name in ("single_device", "nccl", "nccl", "single_device"):
+            t = once(name)
+            ms[name].append(t)
+            turn[name] += t
+        ratios.append(turn["nccl"] / turn["single_device"])
+    return {"warmup_transitions_per_drive": n_warmup, "ms_per_drive": ms,
+            "nccl_over_single_device": ratios,
+            "ratio_median": statistics.median(ratios), "ratio_min": min(ratios),
+            "ratio_max": max(ratios)}
+
+
+def phase_sharded_hmc():
+    """parallel.sharded_hmc_chain at world size 1 under NCCL: eight-schools
+    at 1,024 chains (the eight_schools phase's configuration) and the 2^20
+    plate at 64 chains through the value-and-grad kernel (gaussian_plate's),
+    the kernel held against its plain version on one of the run's calls;
+    the single-device phases' gates, ms per transition beside theirs, NCCL
+    collectives per warmup transition and the host syncs they add, and the
+    NCCL drive against the single-device drive timed in turns."""
+    import fugue_tpu_torch as ftt
+    from fugue_tpu_torch.ops import kernels as K
+    from fugue_tpu_torch.parallel import sharded_hmc_chain
+    from fugue_tpu_torch.parallel.mesh import ShardLayout
+
+    mesh = _nccl_mesh()
+    group = ShardLayout.of(mesh).group
+    n_chains, n_warmup, n_samples, L = 1024, 200, 200, 32
+    staged = ftt.stage(eight_schools_model("cuda"), device="cuda")
+    cfg = ftt.HMCConfig(n_leapfrog=L, target_accept=0.9)
+    _reset_collectives()
+    t0 = time.perf_counter()
+    res = sharded_hmc_chain(1, staged=staged, n_samples=n_samples, n_warmup=n_warmup,
+                            config=cfg, n_chains=n_chains, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_collectives()
+    post = _eight_schools_posterior(res, n_chains, n_samples, "sharded_hmc mu")
+    n_trans = n_warmup + n_samples
+    syncs = _added_host_syncs(staged, cfg, group, n_chains, 10)
+    in_turns = _interleaved_drive_ms(staged, cfg, group, n_chains)
+    row = {"phase": "sharded_hmc", "run": "eight_schools", "card": card_line(),
+           "backend": "nccl", "ranks": 1, "chains": n_chains, "warmup": n_warmup,
+           "samples": n_samples, "n_leapfrog": L, "wall_s": wall,
+           "ms_per_transition": 1e3 * wall / n_trans,
+           "single_device_ms_per_transition": SINGLE_DEVICE_MS.get("eight_schools"),
+           "grad_evals_per_s": n_chains * n_trans * (L + 1) / wall,
+           "collectives": counts,
+           "collectives_per_warmup_transition":
+               (counts["collectives"] - HMC_FIXED_COLLECTIVES) / n_warmup,
+           "host_syncs_10_warmup_transitions": syncs,
+           "added_host_syncs_per_warmup_transition":
+               (syncs["nccl"] - syncs["single_device"]) / 10,
+           "drives_in_turns": in_turns, **post}
+    emit(row)
+    rhat, div, z = post["split_rhat_mu"], post["divergence_rate"], post["mu_z"]
+    check(rhat < 1.02, f"sharded_hmc split-R-hat(mu) {rhat} >= 1.02")
+    check(div < 0.02, f"sharded_hmc divergence rate {div} >= 0.02")
+    check(abs(z) < 5.0, f"sharded_hmc mu mean {post['mu_mean']} is {z:.2f} MC-SE from "
+          f"{EIGHT_SCHOOLS_MU_MEAN}")
+    check(counts == {"collectives": n_warmup + HMC_FIXED_COLLECTIVES, "host_staged": 0},
+          f"sharded_hmc collectives {counts}, want {n_warmup} + {HMC_FIXED_COLLECTIVES}, "
+          "none through the host")
+    check(syncs["nccl"] == syncs["single_device"],
+          f"sharded_hmc: the NCCL collectives add host syncs {syncs}")
+
+    n_chains, n = MAIN_SHAPE
+    n_warmup = n_samples = 100  # per transition against gaussian_plate's 200 + 200
+    n_trans = n_warmup + n_samples
+    cfg = ftt.HMCConfig(n_leapfrog=16, jitter=0.5)
+    with recording(K, "_value_and_grad") as calls:
+        y, res, wall, launches, model_runs = _plate_run(
+            lambda staged, y: sharded_hmc_chain(3, staged=staged, n_samples=n_samples,
+                                                n_warmup=n_warmup, config=cfg,
+                                                n_chains=n_chains, mesh=mesh))
+    hold = _hold_path_plate(K, *_path_plate_call(calls, n_chains, "sharded plate"),
+                            "sharded_hmc plate")
+    calls.clear()
+    post = _plate_posterior(res, y, n_chains, n_samples, "sharded plate")
+    emit({"phase": "sharded_hmc", "run": "plate", "card": card_line(), "chains": n_chains,
+          "rows": n, "warmup": n_warmup, "samples": n_samples, "n_leapfrog": 16,
+          "wall_s": wall, "ms_per_transition": 1e3 * wall / n_trans,
+          "single_device_ms_per_transition": SINGLE_DEVICE_MS.get("gaussian_plate"),
+          "rows_per_s": n_chains * n_trans * 17 * n / wall, "batched_model_runs": model_runs,
+          "launches": launches, "kernel_vs_plain_on_a_call_of_the_run": hold, **post})
+    _check_plate(post, launches, model_runs, "sharded plate")
+    return launches
+
+
+def phase_sharded_smc():
+    """parallel.sharded_smc at world size 1 under NCCL: the 20-site
+    hierarchical model at 131,072 particles with 3 MH moves (the smc
+    phase's first run and gates), the launch contracts, and both kernels
+    against their plain versions on the gathered vectors of the run."""
+    import fugue_tpu_torch as ftt
+    from fugue_tpu_torch.ops import kernels as K
+
+    mesh = _nccl_mesh()
+    staged = ftt.stage(hierarchical_model("cuda"), device="cuda")
+    cfg = ftt.SMCConfig(rejuvenation_steps=3)
+    _reset_collectives()
+    with recording(K, "psystematic_resample") as resamples:
+        row, res = _smc_run("sharded_hierarchical_mh", staged, N_PARTICLES, 3, cfg,
+                            phase="sharded_smc", mesh=mesh)
+    counts = _read_collectives()
+    ref = SMC_MU["mh"]
+    mcse = math.hypot(ref["MU_RUN_SD"], ref["MU_RUN_SD"] / math.sqrt(SMC_MU_RUNS))
+    row.update(card=card_line(), backend="nccl", ranks=1, collectives=counts,
+               mu_ref=ref["MU_MEAN"], mu_mcse=mcse, mu_z=(row["mu_mean"] - ref["MU_MEAN"]) / mcse)
+    emit(row)
+    check(abs(row["mu_z"]) < 5.0, f"sharded_smc: mu mean {row['mu_mean']} is "
+          f"{row['mu_z']:.2f} MC-SE from {ref['MU_MEAN']}")
+    check(counts["host_staged"] == 0, f"sharded_smc: {counts}")
+    # the gathered (N,) log-weights that the run's last resample read
+    lw = resamples[-1][0][1].float()
+    check(lw.shape == (N_PARTICLES,), f"sharded_smc: resampled {tuple(lw.shape)}")
+    holds = {"logsumexp": _lse_f32_check(lw, "sharded_smc logsumexp"),
+             "systematic_resample": [
+                 _resample_f32_contract(lw, lw.double().cpu().numpy(), u0v,
+                                        f"sharded_smc resample u0={u0v}")
+                 for u0v in (0.37, 0.0, 1.0 - 2.0**-24)]}
+    PATH_HOLDS["lse"]["sharded_smc"] = holds["logsumexp"]["kernel_vs_plain"]
+    PATH_HOLDS["resample"]["sharded_smc"] = max(
+        r["kernel_vs_plain"] for r in holds["systematic_resample"])
+    emit({"phase": "sharded_smc", "kernels_vs_plain_on_the_gathered_vectors": holds})
+    return row["launches"]
+
+
+def phase_sharded_vi_plate():
+    """parallel.sharded_vi in data mode (the plate likelihood a sharded
+    factor) at world size 1 under NCCL on the 2^20-row plate, the vi_plate
+    phase's configuration and gates: one plate-kernel call and one NCCL
+    all-reduce per iteration, one host sync per segment; the kernel held
+    against its plain version on one of the run's calls."""
+    import functools
+
+    import fugue_tpu_torch as ftt
+    from fugue_tpu_torch.ops import kernels as K
+    from fugue_tpu_torch.parallel import sharded_vi
+
+    mesh = _nccl_mesh()
+    n_iter = VI_PLATE_SEGMENTS * VI_PLATE_ITERATIONS
+    y_np = plate_numpy_data(MAIN_SHAPE[1])
+    y = torch.as_tensor(y_np, dtype=torch.float32, device="cuda")
+    model_runs = [0]
+    staged = ftt.stage(plate_arg_model(model_runs), y, device="cuda")
+    model_runs[0] = 0
+    optimize = functools.partial(sharded_vi, mesh=mesh, shard="data", factors="sharded")
+    reset_launches()
+    _reset_collectives()
+    with recording(K, "_value_and_grad") as calls:
+        res, wall, syncs = _timed_syncs(lambda: vi_plate_run(staged, 700, optimize))
+        launches, counts, runs = read_launches(), _read_collectives(), model_runs[0]
+    hold = _hold_path_plate(K, *_path_plate_call(calls, VI_PLATE_MC, "sharded_vi_plate"),
+                            "sharded_vi_plate")
+    calls.clear()
+    stats = vi_plate_stats(res.params, y_np)
+    emit({"phase": "sharded_vi_plate", "card": card_line(), "backend": "nccl", "ranks": 1,
+          "rows": MAIN_SHAPE[1], "iterations": n_iter, "wall_s": wall,
+          "ms_per_iteration": 1e3 * wall / n_iter,
+          "single_device_ms_per_iteration": SINGLE_DEVICE_MS.get("vi_plate"),
+          "host_syncs_per_run": syncs, "collectives": counts, "batched_model_runs": runs,
+          "launches": launches, "kernel_vs_plain_on_a_call_of_the_run": hold, **stats})
+    for k, v in stats.items():
+        _within(v, VI_PLATE[k], VI_REF_RUNS["plate"], f"sharded_vi_plate {k}")
+    check(runs == n_iter and launches["nll"] == runs,
+          f"sharded_vi_plate: {launches['nll']} plate kernel calls, {runs} model runs")
+    check(counts == {"collectives": n_iter, "host_staged": 0},
+          f"sharded_vi_plate: collectives {counts}, want one all-reduce per iteration")
+    check(syncs == VI_PLATE_SEGMENTS, f"sharded_vi_plate: {syncs} host syncs, want one per segment")
+    return launches
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def two_ranks_worker(rank: int, world: int, port: int, out: str) -> None:
+    """One of two ranks on the one card over gloo (NCCL refuses two ranks
+    on one device): HMC on eight-schools at 2 x 512 chains, SMC on the
+    hierarchical model at 131,072 particles through the ring, and VI's data
+    mode on 2 x 2^19 plate rows. Writes the rank's results, and the
+    inputs of one of its VI plate-kernel calls, to ``out/rank{rank}.npz``."""
+    import functools
+
+    import fugue_tpu_torch as ftt
+    from fugue_tpu_torch.ops import kernels as K
+    from fugue_tpu_torch.parallel import (DistributedConfig, initialize_distributed,
+                                          make_chain_mesh, sharded_hmc_chain, sharded_vi)
+    from fugue_tpu_torch.parallel.mesh import COUNTS
+
+    initialize_distributed(DistributedConfig(f"localhost:{port}", world, rank, backend="gloo"),
+                           device="cuda")
+    try:
+        mesh = make_chain_mesh(device="cuda")
+        res, walls, staged_reads = {}, {}, {}
+
+        def timed(name, fn):
+            reset_launches()
+            COUNTS.update(collectives=0, host_staged=0)
+            torch.distributed.barrier()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            staged_reads[name] = COUNTS["host_staged"]
+            res[f"{name}_launches"] = np.array([read_launches()[k] for k in ("nll", "lse",
+                                                                             "resample")])
+            return out
+
+        n_warmup, n_samples = TWO_RANKS_HMC
+        staged = ftt.stage(eight_schools_model("cuda"), device="cuda")
+        h = timed("hmc", lambda: sharded_hmc_chain(
+            1, staged=staged, n_samples=n_samples, n_warmup=n_warmup,
+            config=ftt.HMCConfig(n_leapfrog=32, target_accept=0.9), n_chains=1024, mesh=mesh))
+        res.update(hmc_mu=h.samples["mu"].cpu().numpy(), hmc_tau=h.samples["tau"].cpu().numpy(),
+                   hmc_div=h.divergences.cpu().numpy(), hmc_eps=np.array(h.step_size),
+                   hmc_mass=h.inv_mass.cpu().numpy())
+        staged = ftt.stage(hierarchical_model("cuda"), device="cuda")
+        s = timed("smc", lambda: ftt.adaptive_smc(
+            3, N_PARTICLES, staged=staged, config=ftt.SMCConfig(rejuvenation_steps=3),
+            mesh=mesh))
+        res.update(smc_scalars=np.array([s.log_evidence, s.n_stages, s.beta,
+                                         s.posterior_mean("mu").item(),
+                                         s.weights.double().sum().item()]),
+                   smc_mu=s.particles["mu"].cpu().numpy())
+        res["ring_ms"] = np.array(_ring_exchange_ms(s.particles, mesh))
+        y = torch.as_tensor(plate_numpy_data(MAIN_SHAPE[1]), dtype=torch.float32, device="cuda")
+        staged = ftt.stage(plate_arg_model(), y, device="cuda")
+        with recording(K, "_value_and_grad") as calls:
+            v = timed("vi", lambda: vi_plate_run(staged, 700, functools.partial(
+                sharded_vi, mesh=mesh, shard="data", factors="sharded")))
+        # one kernel call's inputs on this rank's rows, for the parent to hold
+        hold = _path_plate_call(calls, VI_PLATE_MC, f"two_ranks vi rank {rank}")
+        calls.clear()
+        res.update({f"hold_{k}": t.cpu().numpy() for k, t in zip(("y", "mu", "sigma"), hold)})
+        res.update(vi_loc=np.array([v.params[a][k].item() for a in ("mu", "sigma")
+                                    for k in ("loc", "raw_scale")]))
+        res["walls"] = np.array([walls[k] for k in ("hmc", "smc", "vi")])
+        res["host_staged"] = np.array([staged_reads[k] for k in ("hmc", "smc", "vi")])
+        np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+TWO_RANKS_HMC = (100, 100)  # warmup, samples
+
+
+def _ring_exchange_ms(particles, mesh, reps: int = 20):
+    """Median ms of one ring gather of this rank's block of ``particles``
+    (every site) by random global ancestors, synchronised on both sides;
+    every rank calls it together."""
+    from fugue_tpu_torch.inference.smc import _ring_gather
+    from fugue_tpu_torch.parallel.mesh import ShardLayout
+
+    shard = ShardLayout.of(mesh)
+    n = next(iter(particles.values())).shape[0]
+    rows = shard.rows(shard.split(n, "particles"))
+    local = {a: v[rows].contiguous() for a, v in particles.items()}
+    g = torch.Generator(device="cuda").manual_seed(4)
+    times = []
+    for _ in range(reps):
+        anc = torch.randint(0, n, (n,), generator=g, device="cuda")[rows]
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        _ring_gather(local, anc, shard)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def phase_two_ranks():
+    """Two processes on the one card, one gloo rank each, running
+    ``two_ranks_worker``; both must return the same global results, and
+    the single-device phases' posterior gates hold for them."""
+    import subprocess
+    import tempfile
+    from types import SimpleNamespace
+
+    from fugue_tpu_torch.ops import kernels as K
+
+    port = _free_port()
+    with tempfile.TemporaryDirectory(dir=REPO) as out:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--two-ranks-worker",
+                                   f"{r},2,{port},{out}"],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        texts = []
+        try:
+            for p in procs:
+                texts.append(p.communicate(timeout=TWO_RANKS_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for r, (p, text) in enumerate(zip(procs, texts)):
+            check(p.returncode == 0, f"two_ranks: rank {r} exited {p.returncode}:\n{text[-4000:]}")
+        ranks = [dict(np.load(os.path.join(out, f"rank{r}.npz"))) for r in range(2)]
+    holds = []
+    for r, rank in enumerate(ranks):
+        y, mu, sigma = (torch.as_tensor(rank[f"hold_{k}"], device="cuda")
+                        for k in ("y", "mu", "sigma"))
+        check(y.numel() == MAIN_SHAPE[1] // 2 and y.dtype == torch.float32,
+              f"two_ranks vi rank {r}: the kernel saw {y.numel()} rows of {y.dtype}")
+        holds.append(_hold_path_plate(K, y, mu, sigma, f"two_ranks vi rank {r}"))
+    same = {k: bool(np.array_equal(ranks[0][k], ranks[1][k])) for k in ranks[0]
+            if k not in ("walls", "host_staged", "ring_ms") and not k.endswith("_launches")
+            and not k.startswith("hold_")}
+    r0 = ranks[0]
+    n_warmup, n_samples = TWO_RANKS_HMC
+    hres = SimpleNamespace(samples={"mu": torch.as_tensor(r0["hmc_mu"]),
+                                    "tau": torch.as_tensor(r0["hmc_tau"])},
+                           divergences=torch.as_tensor(r0["hmc_div"]),
+                           step_size=float(r0["hmc_eps"]))
+    post = _eight_schools_posterior(hres, 1024, n_samples, "two_ranks mu")
+    log_z, stages, beta, smc_mu, wsum = r0["smc_scalars"].tolist()
+    ref = SMC_MU["mh"]
+    mcse = math.hypot(ref["MU_RUN_SD"], ref["MU_RUN_SD"] / math.sqrt(SMC_MU_RUNS))
+    loc = r0["vi_loc"]
+    stats = vi_plate_stats({"mu": {"loc": loc[0], "raw_scale": loc[1]},
+                            "sigma": {"loc": loc[2], "raw_scale": loc[3]}},
+                           plate_numpy_data(MAIN_SHAPE[1]))
+    row = {"phase": "two_ranks", "card": card_line(), "backend": "gloo", "ranks": 2,
+           "wall_s": wall, "walls_per_rank": {k: [float(r["walls"][i]) for r in ranks]
+                                              for i, k in enumerate(("hmc", "smc", "vi"))},
+           "hmc_ms_per_transition": [1e3 * float(r["walls"][0]) / (n_warmup + n_samples)
+                                     for r in ranks],
+           "vi_ms_per_iteration": [1e3 * float(r["walls"][2])
+                                   / (VI_PLATE_SEGMENTS * VI_PLATE_ITERATIONS) for r in ranks],
+           "ms_per_ring_gather": [float(r["ring_ms"]) for r in ranks],
+           "gloo_host_staged_reads": {k: [int(r["host_staged"][i]) for r in ranks]
+                                      for i, k in enumerate(("hmc", "smc", "vi"))},
+           "identical_on_both_ranks": same, "hmc": post, "smc_log_evidence": log_z,
+           "smc_stages": stages, "smc_mu_mean": smc_mu,
+           "smc_mu_z": (smc_mu - ref["MU_MEAN"]) / mcse, "vi": stats,
+           "vi_kernel_vs_plain_on_a_call_per_rank": holds,
+           "launches": {k: {"nll": [int(r[f"{k}_launches"][0]) for r in ranks],
+                            "lse": [int(r[f"{k}_launches"][1]) for r in ranks],
+                            "resample": [int(r[f"{k}_launches"][2]) for r in ranks]}
+                        for k in ("hmc", "smc", "vi")}}
+    emit(row)
+    check(all(same.values()), f"two_ranks: results differ between the ranks: {same}")
+    check(post["split_rhat_mu"] < 1.02 and post["divergence_rate"] < 0.02
+          and abs(post["mu_z"]) < 5.0, f"two_ranks hmc: {post}")
+    check(beta == 1.0 and abs(wsum - 1.0) < 1e-4 and abs(row["smc_mu_z"]) < 5.0,
+          f"two_ranks smc: beta {beta}, weights {wsum}, mu z {row['smc_mu_z']}")
+    s = int(stages)
+    for r in ranks:
+        _, lse, resample = (int(x) for x in r["smc_launches"])
+        check(lse == 4 * s + 3 and resample == s - 1,
+              f"two_ranks smc launches: {lse} logsumexp, {resample} resample, {s} stages")
+        # one call per iteration, and one per segment: each segment stages
+        # the model on the rank's rows (one discovery run)
+        nll = int(r["vi_launches"][0])
+        check(nll == VI_PLATE_SEGMENTS * (VI_PLATE_ITERATIONS + 1),
+              f"two_ranks vi: {nll} plate kernel calls")
+    for k, v in stats.items():
+        _within(v, VI_PLATE[k], VI_REF_RUNS["plate"], f"two_ranks vi {k}")
+    return {"nll": sum(int(r["vi_launches"][0]) + int(r["hmc_launches"][0]) for r in ranks),
+            "lse": sum(int(r["smc_launches"][1]) for r in ranks),
+            "resample": sum(int(r["smc_launches"][2]) for r in ranks)}
+
+
+def phase_serve_sharded():
+    """``hmc.sharded`` over HTTP on the DSL coin flip (the service's
+    one-rank NCCL chain mesh): the posterior mean, sd and split-R-hat
+    against Beta(20, 11); ``vi.run``'s summaries read to the host once
+    (its host syncs against the same optimization called directly); and a
+    sharded checkpoint of a sharded HMC state, restored into its template,
+    resuming bitwise."""
+    import tempfile
+    from types import SimpleNamespace
+
+    import fugue_tpu_torch as ftt
+    from fugue_tpu_torch.parallel import sharded_hmc_chain
+    from fugue_tpu_torch.parallel.mesh import chain_sharded
+    from fugue_tpu_torch.runtime.checkpoint import load_checkpoint_sharded, save_checkpoint_sharded
+
+    mesh = _nccl_mesh()
+    heads = sum(COIN_FLIPS)
+    a, b = 2 + heads, 2 + len(COIN_FLIPS) - heads
+    p_exact, p_sd = a / (a + b), math.sqrt(a * b / ((a + b) ** 2 * (a + b + 1)))
+    n_chains = 256
+    row = {"phase": "serve_sharded", "card": card_line()}
+    with Rpc() as rpc:
+        mid = rpc("compile", source=COIN_DSL, data={"flips": COIN_FLIPS})["model_id"]
+        t0 = time.perf_counter()
+        out = rpc("hmc.sharded", model_id=mid, n_chains=n_chains, n_samples=25, n_warmup=25)
+        p = out["summaries"]["p"]
+        row["hmc_sharded"] = {"wall_s": time.perf_counter() - t0, "n_devices": out["n_devices"],
+                              "n_chains": out["n_chains"], "step_size": out["step_size"],
+                              "mean": p["mean"][0], "sd": p["sd"][0], "r_hat": p["r_hat"][0],
+                              "mean_z_one_draw_per_chain":
+                                  (p["mean"][0] - p_exact) / (p_sd / math.sqrt(n_chains))}
+        check(out["n_devices"] == 1 and out["n_chains"] == n_chains, f"hmc.sharded: {out}")
+        check(abs(row["hmc_sharded"]["mean_z_one_draw_per_chain"]) < 5.0
+              and abs(p["sd"][0] / p_sd - 1.0) < 0.1 and p["r_hat"][0] < 1.05,
+              f"hmc.sharded posterior: {row['hmc_sharded']}")
+
+        # vi.run's summaries: one read over the optimization's own
+        params = {"model_id": mid, "n_iterations": 200, "posterior_draws": 1024}
+        _, _, staged = rpc.service._models[mid]
+        cfg = ftt.VIConfig(n_iterations=200)
+
+        def direct_run():
+            return ftt.optimize_meanfield_vi(rpc.service._key(params, 8), staged=staged,
+                                             config=cfg).posterior_sample(
+                rpc.service._key(params, 9), 1024)
+
+        direct_run()  # first use (lazy library set-up) outside the counts
+        direct = _host_syncs(direct_run)
+        served = rpc.host_reads("vi.run", **params)
+        row["vi_run_host_reads"] = {"service": served, "direct": direct}
+        check(served == direct + 1, f"vi.run: {served} host reads against {direct} direct + 1")
+
+    # a sharded checkpoint of a sharded HMC state, resumed bitwise
+    staged = ftt.stage(eight_schools_model("cuda"), device="cuda")
+    res = sharded_hmc_chain(5, staged=staged, n_samples=20, n_warmup=40, n_chains=128,
+                            config=ftt.HMCConfig(n_leapfrog=8), mesh=mesh)
+    state = {"final_positions": chain_sharded(res.final_positions, mesh),
+             "step_size": res.step_size, "inv_mass": res.inv_mass}
+    template = {"final_positions": chain_sharded(torch.zeros_like(res.final_positions), mesh),
+                "step_size": 0.0, "inv_mass": torch.zeros_like(res.inv_mass)}
+    with tempfile.TemporaryDirectory(dir=REPO) as d:
+        save_checkpoint_sharded(os.path.join(d, "hmc"), state)
+        back = load_checkpoint_sharded(os.path.join(d, "hmc"), template)
+    restored = SimpleNamespace(final_positions=back["final_positions"].full_tensor(),
+                               step_size=back["step_size"], inv_mass=back["inv_mass"])
+    runs = [ftt.hmc_chain(9, staged=staged, n_samples=20, n_chains=128, resume=r,
+                          config=ftt.HMCConfig(n_leapfrog=8)) for r in (res, restored)]
+    row["checkpoint"] = {"resumed_bitwise": bool(torch.equal(runs[0].positions,
+                                                             runs[1].positions)),
+                         "placements": str(back["final_positions"].placements)}
+    emit(row)
+    check(row["checkpoint"]["resumed_bitwise"], "serve_sharded: the restored checkpoint "
+          "does not resume as the original state")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3065,7 +3696,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--two-ranks-worker", metavar="RANK,WORLD,PORT,OUT",
+                    help="run one rank of the two_ranks phase (the phase starts these)")
     args = ap.parse_args(argv)
+    if args.two_ranks_worker:
+        rank, world, port, out = args.two_ranks_worker.split(",", 3)
+        two_ranks_worker(int(rank), int(world), int(port), out)
+        return 0
     phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES)
     if unknown:
@@ -3127,6 +3764,14 @@ def main(argv=None) -> int:
     add_smc(run("serve_coin", phase_serve_coin))
     run("serve_eight_schools", phase_serve_eight_schools, chees_rate)
     add_smc(run("serve_pf", phase_serve_pf))
+    sharded_launches = run("sharded_hmc", phase_sharded_hmc)
+    add_smc(run("sharded_smc", phase_sharded_smc))
+    sharded_vi_launches = run("sharded_vi_plate", phase_sharded_vi_plate)
+    two_ranks_launches = run("two_ranks", phase_two_ranks)
+    add_smc(two_ranks_launches)
+    run("serve_sharded", phase_serve_sharded)
+    if torch.distributed.is_initialized():  # the sharded phases' one-rank group
+        torch.distributed.destroy_process_group()
     emit({"phase_seconds": walls, "main_seconds": time.perf_counter() - started,
           "profiler_sessions": TRACES})
 
@@ -3136,22 +3781,29 @@ def main(argv=None) -> int:
         return 0
 
     def entry(name, key, source, row, n_launches):
+        # the largest error of the kernel phase's row and of the holds on
+        # the main path's own calls (PATH_HOLDS)
         return {"name": name, "route": "cuda", "source": f"fugue_tpu_torch/csrc/{source}.cu",
                 "replaces": REPLACES[key], "launches": n_launches,
-                "max_abs_err": row["kernel_vs_plain"], "ms": row["kernel_ms"],
+                "max_abs_err": max(row["kernel_vs_plain"], *PATH_HOLDS[key].values()),
+                "ms": row["kernel_ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
+    emit({"kernel_vs_plain_on_main_path_calls": PATH_HOLDS})
     emit({"kernels": [
-        # the plate kernel's calls on its four paths: HMC, NUTS, ChEES and VI
+        # the plate kernel's calls on its paths: HMC, NUTS, ChEES and VI, and
+        # the sharded HMC, the sharded VI and the two ranks' HMC and VI
         entry("normal_loglik_sum_value_and_grad", "nll", "normal_loglik_sum",
               kernel_rows[MAIN_SHAPE],
               launches["nll"] + nuts_launches["nll"] + chees_launches["nll"]
-              + vi_launches["nll"]),
-        # the SMC kernels' calls on their nine paths: the smc phase's three
-        # runs, the coin (two runs), mixture and discrete phases, abc_smc,
-        # the validation harness's smc adapter (two runs), and the service's
-        # smc.run (serve_coin) and pf.observe (serve_pf)
+              + vi_launches["nll"] + sharded_launches["nll"] + sharded_vi_launches["nll"]
+              + two_ranks_launches["nll"]),
+        # the SMC kernels' calls on their paths: the smc phase's three runs,
+        # the coin (two runs), mixture and discrete phases, abc_smc, the
+        # validation harness's smc adapter (two runs), the service's smc.run
+        # (serve_coin) and pf.observe (serve_pf), the sharded SMC and the two
+        # ranks' SMC (each rank's calls)
         entry("logsumexp", "lse", "logsumexp", smc_rows[("lse", N_PARTICLES)],
               smc_launches["lse"]),
         entry("systematic_resample", "resample", "systematic_resample",

@@ -29,7 +29,10 @@ How it is expressed in PyTorch:
   them from a draws object (``GeneratorDraws`` by default), the seam
   through which a test replays the JAX key schedule.
 
-``chain_axis``/``pmean`` (the sharded drive) wait for the parallel slice.
+``make_chees_drive(chain_group=...)`` is the sharded drive: the
+criterion's cross-chain means (``cmean``), the acceptance mean, the ε₀
+consensus and the Welford merge reduce over the process group, so ε and T,
+and with them every transition's L, are the same on every rank.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import numpy as np
 import torch
 
 from .. import settings
+from ..parallel.mesh import cross_mean
 from ..runtime.staging import StagedModel, stage
 from .hmc import (
     DualAveragingState,
@@ -56,6 +60,8 @@ from .hmc import (
     mass_velocity,
     momentum_from_normal,
     start_positions,
+    eps_consensus,
+    welford_merge_across,
     welford_push_batch,
     welford_variance,
 )
@@ -215,7 +221,17 @@ def _adam_step(state: AdamState, grad, lr, b1=0.9, b2=0.999, eps=1e-8):
     return AdamState(m=m, v=v, t=t), lr * mhat / (torch.sqrt(vhat) + eps)
 
 
-def chees_gradient(Q, Q_prop, V_end, accept_prob, h, proj=None):
+def chain_mean(group=None):
+    """``cmean(x, dim=None)``: the mean over the chains of every rank in
+    ``group`` (the local mean, then the ranks' mean: the shards are equal)."""
+    def cmean(x, dim=None):
+        m = torch.mean(x) if dim is None else torch.mean(x, dim=dim)
+        return cross_mean(m, group)
+
+    return cmean
+
+
+def chees_gradient(Q, Q_prop, V_end, accept_prob, h, proj=None, cmean=None):
     """Surrogate d ChEES / d T from the (C, d) batch: the acceptance-weighted
     cross-chain mean of h·(‖q̃'‖² − ‖q̃‖²)·⟨q̃', v'⟩, q̃ centred on the
     weighted batch mean. ``proj`` (d,) applies it to the projection q̃·proj
@@ -224,14 +240,17 @@ def chees_gradient(Q, Q_prop, V_end, accept_prob, h, proj=None):
     Hardened for float32: rows whose proposal or end velocity is not finite
     are replaced BEFORE any arithmetic (inf·0 is NaN) and weigh nothing,
     non-finite contributions count 0, and the result is clipped to ±1e6, so
-    one overflowed transition cannot set Adam's second moment to inf."""
+    one overflowed transition cannot set Adam's second moment to inf.
+    ``cmean`` (``chain_mean``) takes the means over the chains of every
+    rank."""
+    cmean = cmean or chain_mean()
     finite = torch.all(torch.isfinite(Q_prop), dim=1) & torch.all(torch.isfinite(V_end), dim=1)
     Qp_safe = torch.where(finite[:, None], Q_prop, 0.0)
     V_safe = torch.where(finite[:, None], V_end, 0.0)
     w = torch.where(finite, accept_prob, 0.0)
-    mw = torch.clamp(torch.mean(w), min=1e-10)
-    q_bar = torch.mean(Q * w[:, None], dim=0) / mw
-    qp_bar = torch.mean(Qp_safe * w[:, None], dim=0) / mw
+    mw = torch.clamp(cmean(w), min=1e-10)
+    q_bar = cmean(Q * w[:, None], dim=0) / mw
+    qp_bar = cmean(Qp_safe * w[:, None], dim=0) / mw
     Qc = Q - q_bar[None, :]
     Qp = Qp_safe - qp_bar[None, :]
     if proj is None:
@@ -245,7 +264,7 @@ def chees_gradient(Q, Q_prop, V_end, accept_prob, h, proj=None):
         inner = pqp * pv
     g = h * dsq * inner
     g = torch.where(torch.isfinite(g), g, 0.0)
-    grad = torch.mean(w * g) / mw
+    grad = cmean(w * g) / mw
     grad = torch.where(torch.isfinite(grad), grad, 0.0)
     return torch.clamp(grad, -1e6, 1e6)
 
@@ -255,19 +274,20 @@ def _pre_scale(inv_mass):
     return torch.sqrt(torch.clamp(inv_mass, min=1e-30))
 
 
-def oja_update(Q_out, u, z, inv_mass, decay):
+def oja_update(Q_out, u, z, inv_mass, decay, cmean=None):
     """One Oja/EMA power-iteration step toward the leading principal
     direction of the preconditioned batch (SNAPER's projection). Rows that
     are not finite are masked before any arithmetic; a batch with no finite
-    row keeps the previous direction."""
+    row keeps the previous direction. ``cmean`` as in ``chees_gradient``."""
+    cmean = cmean or chain_mean()
     S = _pre_scale(inv_mass)
     finite_q = torch.all(torch.isfinite(Q_out), dim=1)
     Qs = torch.where(finite_q[:, None], Q_out, 0.0)
-    nf = torch.clamp(torch.mean(finite_q.to(Q_out.dtype)), min=1e-10)
-    q_m = torch.mean(Qs, dim=0) / nf
+    nf = torch.clamp(cmean(finite_q.to(Q_out.dtype)), min=1e-10)
+    q_m = cmean(Qs, dim=0) / nf
     Xc = torch.where(finite_q[:, None], (Qs - q_m[None, :]) / S, 0.0)
     y = Xc @ u
-    cov_u = torch.mean(y[:, None] * Xc, dim=0) / nf
+    cov_u = cmean(y[:, None] * Xc, dim=0) / nf
     cov_u = torch.where(torch.isfinite(cov_u), cov_u, 0.0)
     z_new = decay * z + (1.0 - decay) * cov_u
     nrm = torch.linalg.norm(z_new)
@@ -345,6 +365,7 @@ def make_chees_drive(
     n_warmup: int,
     *,
     discrete: Optional[Dict[str, Any]] = None,
+    chain_group=None,
 ):
     """Build ``drive(q0, draws, eps_over=None, T_over=None,
     inv_mass_over=None) → (q_f, qs, ljs, aps, divs, eps, T, mean_L,
@@ -361,13 +382,16 @@ def make_chees_drive(
     preconditioned space; a second half with log T capped at
     log(2π·max_trajectory_periods). T is Polyak-averaged with weight
     t^−0.75; sampling runs at the averaged ε and T, the final T clamped to
-    the post-mass cap. No chain rescue."""
+    the post-mass cap. No chain rescue. ``chain_group``: the sharded drive
+    over this rank's ``n_chains``; ``aps`` are then means over every
+    rank's chains."""
     if config.criterion not in ("chees", "snaper"):
         raise ValueError(
             f"unknown ChEES criterion {config.criterion!r} (expected 'chees' or 'snaper')"
         )
     snaper = config.criterion == "snaper"
     d = staged.dim
+    cmean = chain_mean(chain_group)
     halton = halton_sequence(max(n_warmup + n_samples, 1))
 
     def potential(z):
@@ -383,7 +407,8 @@ def make_chees_drive(
             eps0 = torch.tensor(config.step_size, dtype=dt, device=dev)
         else:
             p = momentum_from_normal(unit, draws.search_normal(d, dt))
-            eps0 = find_reasonable_epsilon(potential, q0[0], p, unit)
+            eps0 = eps_consensus(find_reasonable_epsilon(potential, q0[0], p, unit),
+                                 chain_group)
         inv_mass = unit if inv_mass_over is None else _tensor(inv_mass_over, dt, dev)
         logT = torch.log(_tensor(T_over, dt, dev).reshape(())) if T_over is not None \
             else torch.log(eps0)
@@ -410,10 +435,11 @@ def make_chees_drive(
                 h = hs[offset + i]
                 eps = torch.exp(da.log_eps) if config.adapt_step_size else eps0
                 q_out, q_prop, p_end, ap, _, _, _, _ = transition(q, eps, torch.exp(logT), h)
-                da = dual_averaging_update(da, torch.mean(ap), config.target_accept)
+                da = dual_averaging_update(da, cmean(ap), config.target_accept)
                 # the criterion compares the proposal with the pre-transition state
                 proj = u / _pre_scale(inv_mass) if snaper else None
-                g = chees_gradient(q, q_prop, mass_velocity(inv_mass, p_end), ap, h, proj=proj)
+                g = chees_gradient(q, q_prop, mass_velocity(inv_mass, p_end), ap, h, proj=proj,
+                                   cmean=cmean)
                 adam, step = _adam_step(adam, -g * torch.exp(logT), config.adapt_rate)  # ascent
                 hi = torch.minimum(torch.log(config.max_leapfrog * eps), log_t_cap)
                 logT = torch.minimum(torch.maximum(logT - step, torch.log(eps) - 1.0), hi)
@@ -421,7 +447,8 @@ def make_chees_drive(
                 logT_bar = eta * logT + (1.0 - eta) * logT_bar
                 welford = welford_push_batch(welford, q_out)
                 if snaper:
-                    u, z_pc = oja_update(q_out, u, z_pc, inv_mass, config.principal_decay)
+                    u, z_pc = oja_update(q_out, u, z_pc, inv_mass, config.principal_decay,
+                                         cmean=cmean)
                 q = q_out
             return welford
 
@@ -429,7 +456,7 @@ def make_chees_drive(
         if n_half > 0:
             welford = warm_window(n_half, 0, inf_cap)
             if config.adapt_mass:
-                inv_mass = welford_variance(welford)
+                inv_mass = welford_variance(welford_merge_across(welford, chain_group))
                 da = DualAveragingState.init(torch.exp(da.log_eps_bar))
                 if snaper:
                     # first-half S was 1, so the q-space direction is u: map
@@ -456,7 +483,7 @@ def make_chees_drive(
         sampling_leaps = 0
         for i in range(n_samples):
             q, _, _, ap, _, div, L, u_out = transition(q, eps_f, T_f, hs[n_warmup + i])
-            qs[i], ljs[i], aps[i], divs[i] = q, -u_out, torch.mean(ap), div
+            qs[i], ljs[i], aps[i], divs[i] = q, -u_out, cmean(ap), div
             sampling_leaps += L
         mean_L = sampling_leaps / n_samples if n_samples else math.nan
         return q, qs, ljs, aps, divs, eps_f, T_f, mean_L, inv_mass, counts

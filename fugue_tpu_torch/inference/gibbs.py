@@ -11,7 +11,8 @@ The port of ``fugue_tpu/inference/gibbs.py``: ``GibbsResult``,
    continuous values: one batched model run per site.
 
 Warmup adapts one step size for all chains by dual averaging on the
-cross-chain mean acceptance. ``gibbs_sweep`` holds the arithmetic and
+cross-chain mean acceptance (over every rank's chains in the sharded drive,
+``chain_group``). ``gibbs_sweep`` holds the arithmetic and
 takes its noise as arguments (momenta, the HMC accept log-uniform, and per
 discrete site its proposal draws and accept log-uniform), so the tests can
 hand it the JAX sweep's own draws; the drive draws them from one
@@ -29,11 +30,13 @@ import torch
 from torch.func import grad_and_value, vmap
 
 from .. import settings
+from ..parallel.mesh import cross_mean
 from ..runtime.staging import StagedModel, stage
 from .hmc import (
     DualAveragingState,
     HMCConfig,
     dual_averaging_update,
+    eps_consensus,
     find_reasonable_epsilon,
     hmc_transition,
     prior_positions,
@@ -89,12 +92,15 @@ def gibbs_sweep(staged: StagedModel, z, disc, eps, n_leapfrog: int, p, log_u,
 
 
 def make_gibbs_drive(staged: StagedModel, config: HMCConfig, n_chains: int,
-                     n_samples: int, n_warmup: int, *, discrete_scale: float = 1.0):
+                     n_samples: int, n_warmup: int, *, discrete_scale: float = 1.0,
+                     chain_group=None):
     """Build ``drive(generator, state_over=None, eps_over=None) → (cont,
     disc, aps, dacc, eps, (z_f, disc_f))``: ``cont`` and ``disc`` are
     address → (n_samples, C, *shape), ``aps`` and ``dacc`` (n_samples, C).
     ``state_over`` = (positions, discrete values) and ``eps_over`` resume a
-    run (warmup is then 0)."""
+    run (warmup is then 0). ``chain_group``: the sharded drive over this
+    rank's ``n_chains``; the acceptance mean and the ε₀ consensus reduce
+    over the process group, the discrete sweeps stay on the rank."""
     d = staged.dim
     if d == 0:
         raise ValueError("no continuous sites; use adaptive_mcmc_chain")
@@ -132,11 +138,13 @@ def make_gibbs_drive(staged: StagedModel, config: HMCConfig, n_chains: int,
         else:
             d0 = {a: v[0] for a, v in discs.items()}
             p0 = torch.randn((d,), generator=generator, device=dev, dtype=dt)
-            eps0 = find_reasonable_epsilon(lambda zz: staged.potential(zz, d0), zs[0], p0, ones)
+            eps0 = eps_consensus(find_reasonable_epsilon(
+                lambda zz: staged.potential(zz, d0), zs[0], p0, ones), chain_group)
         da = DualAveragingState.init(eps0)
         for _ in range(n_warmup):
             zs, discs, ap, _ = sweep(zs, discs, torch.exp(da.log_eps))
-            da = dual_averaging_update(da, torch.mean(ap), config.target_accept)
+            da = dual_averaging_update(da, cross_mean(torch.mean(ap), chain_group),
+                                       config.target_accept)
         eps_f = torch.exp(da.log_eps_bar) if n_warmup > 0 else eps0
 
         cont = {s.address: [] for s in staged.continuous_sites}

@@ -27,7 +27,11 @@ How it is expressed in PyTorch:
   (dense). On batched (C, d) momenta the dense velocity is ``p @ Σ`` (Σ is
   symmetric), and momenta are drawn through the Cholesky factor of Σ.
 
-The sharded (``chain_axis``) drive waits for the parallel slice.
+``make_hmc_drive(chain_group=...)`` is the sharded drive: every rank runs
+it on its slice of the chains, and the adaptation's statistics (the
+acceptance mean, the initial step size's consensus, the Welford moments at
+the midpoint) reduce over the process group, so every rank adapts the same
+kernel (``parallel/``).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import torch
 from torch.func import grad_and_value, vmap
 
 from .. import settings
+from ..parallel.mesh import cross_mean, cross_sum
 from ..runtime.staging import StagedModel, stage
 
 
@@ -157,6 +162,23 @@ def welford_push_batch(state: WelfordState, batch) -> WelfordState:
     else:
         m2_new = state.m2 + torch.sum(centered**2, dim=-2) + w * delta**2
     return WelfordState(count=n_new, mean=mean_new, m2=m2_new)
+
+
+def welford_merge_across(state: WelfordState, group) -> WelfordState:
+    """Merge the ranks' Welford moments over a process group (the Chan
+    parallel combine as sums): every rank gets the moments of all chains.
+    Every rank pushes the same batches, so the total count is the local
+    count times the group size, known on the host."""
+    if group is None:
+        return state
+    total = state.count * torch.distributed.get_world_size(group)
+    mean_g = cross_sum(state.count * state.mean, group) / max(total, 1.0)
+    delta = state.mean - mean_g
+    if state.m2.dim() > state.mean.dim():
+        corr = state.count * (delta.unsqueeze(-1) * delta.unsqueeze(-2))
+    else:
+        corr = state.count * delta**2
+    return WelfordState(count=total, mean=mean_g, m2=cross_sum(state.m2 + corr, group))
 
 
 def welford_variance(state: WelfordState, regularize: bool = True):
@@ -491,16 +513,27 @@ def rescue_stuck(q, ema, generator: torch.Generator):
     return torch.where((ema < 0.1)[:, None], q[donors], q)
 
 
-def initial_step_size(config, potential, q0, generator, inv_mass, eps_over=None):
+def initial_step_size(config, potential, q0, generator, inv_mass, eps_over=None,
+                      chain_group=None):
     """The run's first step size: ``eps_over`` (a resumed run's), else the
-    configured one, else the reasonable-epsilon search from chain 0."""
+    configured one, else the reasonable-epsilon search from chain 0. With a
+    ``chain_group`` each rank searches from its own chain 0 and the ranks
+    agree on exp(mean log ε₀)."""
     dt, dev = q0.dtype, q0.device
     if eps_over is not None:
         return torch.as_tensor(eps_over, dtype=dt, device=dev).reshape(())
     if config.step_size is not None:
         return torch.tensor(config.step_size, dtype=dt, device=dev)
     p = mass_draw_momentum(generator, inv_mass, (q0.shape[1],))
-    return find_reasonable_epsilon(potential, q0[0], p, inv_mass)
+    return eps_consensus(find_reasonable_epsilon(potential, q0[0], p, inv_mass), chain_group)
+
+
+def eps_consensus(eps0, chain_group):
+    """The ranks' common initial step size exp(mean log ε₀); ``eps0``
+    itself without a group."""
+    if chain_group is None:
+        return eps0
+    return torch.exp(cross_mean(torch.log(eps0), chain_group))
 
 
 def make_hmc_drive(
@@ -513,6 +546,7 @@ def make_hmc_drive(
     discrete: Optional[Dict[str, Any]] = None,
     force_fn: Optional[Callable] = None,
     per_chain: bool = False,
+    chain_group=None,
 ):
     """Build ``drive(q0, generator, eps_over=None, inv_mass_over=None) →
     (q_f, qs, ljs, aps, divs, eps, inv_mass)``; discrete sites are held at
@@ -545,6 +579,8 @@ def make_hmc_drive(
 
     if force_fn is None:
         force_fn = batched_force(potential)
+    if per_chain and chain_group is not None:
+        raise ValueError("per_chain adaptation has no cross-rank statistics")
     chains = n_chains if per_chain else None
 
     def drive(q0, generator: torch.Generator, eps_over=None, inv_mass_over=None):
@@ -554,7 +590,8 @@ def make_hmc_drive(
         else:
             im0 = torch.as_tensor(inv_mass_over, dtype=dt, device=dev)
         if not per_chain:
-            eps0 = initial_step_size(config, potential, q0, generator, im0, eps_over)
+            eps0 = initial_step_size(config, potential, q0, generator, im0, eps_over,
+                                     chain_group)
         elif eps_over is not None or config.step_size is not None:
             eps = config.step_size if eps_over is None else eps_over
             eps0 = torch.as_tensor(eps, dtype=dt, device=dev).expand(n_chains).clone()
@@ -586,8 +623,9 @@ def make_hmc_drive(
                     da = dual_averaging_update(da, info.accept_prob, config.target_accept)
                     welford = welford_push_batch(welford, q.unsqueeze(-2))
                 else:
-                    da = dual_averaging_update(da, torch.mean(info.accept_prob),
-                                               config.target_accept)
+                    da = dual_averaging_update(
+                        da, cross_mean(torch.mean(info.accept_prob), chain_group),
+                        config.target_accept)
                     welford = welford_push_batch(welford, q)
                 ema = 0.9 * ema + 0.1 * info.accept_prob
             if per_chain:
@@ -599,6 +637,7 @@ def make_hmc_drive(
             n_half = n_warmup // 2
             q, da, welford = warm_window(q, da, inv_mass, max(n_half, 1))
             if config.adapt_mass:
+                welford = welford_merge_across(welford, chain_group)
                 if dense:
                     inv_mass = welford_covariance(welford)
                 elif per_chain:

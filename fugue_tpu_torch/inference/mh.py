@@ -31,7 +31,11 @@ per-site scales: the initial state is ONE batched prior run that also
 scores the draws (``init_mh_state``), and every transition is one batched
 replay, so a run makes exactly 1 + n_warmup + n_samples batched model runs.
 Warmup transitions adapt the scales; sampling transitions leave them
-frozen. The JAX driver's ``mesh=`` waits for the parallel slice.
+frozen. With ``mesh=`` the chains split over the ranks, and two ranks give
+the draws of one: every rank draws the noise of the GLOBAL batch from the
+same generator (and makes the global initial state) and keeps its block of
+rows, then runs the model on its chains only. MH adapts per chain, so no
+collective runs until the results are gathered at the end.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from torch.func import vmap
 from .. import settings
 from ..core.distributions import Support
 from ..core.rng import site_seed
+from ..parallel.mesh import ShardLayout
 from ..runtime.staging import StagedModel, stage
 from .mcmc_utils import AdaptationState, adapt_update
 
@@ -138,27 +143,31 @@ def make_site_proposal(support: Support) -> Callable:
     raise ValueError(f"{kind!r} is a continuous support: it proposes in the packed layout")
 
 
-def draw_discrete_noise(staged: StagedModel, scales, generator: torch.Generator, b: int):
+def draw_discrete_noise(staged: StagedModel, scales, generator: torch.Generator, b: int,
+                        rows: Optional[slice] = None):
     """The discrete sites' draws for one step of ``b`` members: per walk
     site (mag, sign) with mag uniform on 1..max(round(scale), 1) and sign
     ±1 with probability 1/2; per categorical site a uniform category; a
-    flip draws nothing."""
+    flip draws nothing. ``rows``: keep those members of the ``b`` drawn
+    (``scales`` are then theirs)."""
     dev = generator.device
+    keep = (lambda x: x) if rows is None else (lambda x: x[rows])
     out: Dict[str, Any] = {}
     for s in staged.discrete_sites:
         shape = (b,) + s.shape
         if s.support.kind == "boolean":
             out[s.address] = None
         elif s.support.kind == "categorical":
-            out[s.address] = torch.randint(0, s.support.size, shape, generator=generator,
-                                           device=dev)
+            out[s.address] = keep(torch.randint(0, s.support.size, shape, generator=generator,
+                                                device=dev))
         else:
             scale = scales[..., staged.site_index[s.address]]
             width = torch.clamp(torch.round(scale), min=1.0)
             width = width.reshape(width.shape + (1,) * (len(shape) - width.dim()))
-            u = torch.rand(shape, generator=generator, device=dev, dtype=scales.dtype)
+            u = keep(torch.rand(shape, generator=generator, device=dev, dtype=scales.dtype))
             mag = torch.minimum(1.0 + torch.floor(u * width), width).to(torch.int64)
-            sign = torch.where(torch.rand(shape, generator=generator, device=dev) < 0.5, 1, -1)
+            sign = keep(torch.where(torch.rand(shape, generator=generator, device=dev) < 0.5,
+                                    1, -1))
             out[s.address] = (mag, sign)
     return out
 
@@ -287,15 +296,22 @@ def mh_step(
     adapt: bool,
     target_accept: float = TARGET_ACCEPT,
     log_density_fn: Optional[Callable] = None,
+    *,
+    rows: Optional[slice] = None,
+    n_total: Optional[int] = None,
 ):
     """One single-site MH transition for the batch in ``state``, its noise
-    drawn from ``generator`` (see ``mh_step_from_noise``)."""
-    b = state.log_joint.shape[0]
+    drawn from ``generator`` (see ``mh_step_from_noise``). ``rows`` and
+    ``n_total``: ``state`` holds those rows of a batch of ``n_total``; the
+    noise of the whole batch is drawn and theirs kept (a rank's block)."""
+    b = state.log_joint.shape[0] if n_total is None else n_total
     dt, dev = state.log_joint.dtype, state.log_joint.device
-    site_idx = torch.randint(0, len(staged.sites), (b,), generator=generator, device=dev)
-    eps = torch.randn((b, staged.constrained_dim), generator=generator, device=dev, dtype=dt)
-    log_u = torch.log1p(-torch.rand((b,), generator=generator, device=dev, dtype=dt))
-    disc = draw_discrete_noise(staged, state.adapt.scale(), generator, b)
+    keep = (lambda x: x) if rows is None else (lambda x: x[rows])
+    site_idx = keep(torch.randint(0, len(staged.sites), (b,), generator=generator, device=dev))
+    eps = keep(torch.randn((b, staged.constrained_dim), generator=generator, device=dev,
+                           dtype=dt))
+    log_u = keep(torch.log1p(-torch.rand((b,), generator=generator, device=dev, dtype=dt)))
+    disc = draw_discrete_noise(staged, state.adapt.scale(), generator, b, rows)
     return mh_step_from_noise(staged, state, site_idx, eps, log_u, adapt, target_accept,
                               log_density_fn, disc)
 
@@ -322,6 +338,7 @@ def adaptive_mcmc_chain(
     target_accept: float = TARGET_ACCEPT,
     staged: Optional[StagedModel] = None,
     device="cuda",
+    mesh=None,
 ) -> MHResult:
     """Adaptive single-site random-scan MH over ``n_chains`` chains at once.
 
@@ -331,27 +348,52 @@ def adaptive_mcmc_chain(
     then one replay per transition. ``seed`` seeds the prior draw and one
     ``torch.Generator`` on the staged model's device, which draws every
     proposal and accept uniform. ``device`` is used only when ``staged`` is
-    not given."""
+    not given.
+
+    ``mesh``: a ``DeviceMesh``; every rank calls this with the same
+    arguments, holds its block of the chains (the mesh's chain axes), and
+    returns the global result, bitwise the one-rank run's (see the module
+    docstring). The initial state is drawn for every chain on every rank,
+    in one batched model run; each transition runs the rank's chains."""
     if staged is None:
         staged = stage(model_fn, *model_args, device=device)
+    shard = ShardLayout() if mesh is None else ShardLayout.of(mesh)
+    c = shard.split(n_chains)
+    rows = shard.rows(c)  # every row on one device
     generator = torch.Generator(device=staged.device).manual_seed(int(seed))
-    state = init_mh_state(staged, site_seed(seed, "mh/init"), n_chains, initial_scale)
+    state = _rows_of(init_mh_state(staged, site_seed(seed, "mh/init"), n_chains, initial_scale),
+                     rows)
     for _ in range(n_warmup):
-        state, _ = mh_step(staged, state, generator, True, target_accept)
+        state, _ = mh_step(staged, state, generator, True, target_accept,
+                           rows=rows, n_total=n_chains)
     samples = {a: torch.empty((n_samples,) + tuple(v.shape), dtype=v.dtype, device=v.device)
                for a, v in state.latents.items()}
-    log_joint = torch.empty((n_samples, n_chains), dtype=state.log_joint.dtype,
-                            device=staged.device)
-    accepted = torch.zeros((n_chains,), dtype=state.log_joint.dtype, device=staged.device)
+    log_joint = torch.empty((n_samples, c), dtype=state.log_joint.dtype, device=staged.device)
+    accepted = torch.zeros((c,), dtype=state.log_joint.dtype, device=staged.device)
     for i in range(n_samples):
-        state, acc = mh_step(staged, state, generator, False, target_accept)
+        state, acc = mh_step(staged, state, generator, False, target_accept,
+                             rows=rows, n_total=n_chains)
         for a, v in state.latents.items():
             samples[a][i] = v
         log_joint[i] = state.log_joint
         accepted += acc
+    # the global result: one gather per tensor (none on one device)
+    samples = {a: shard.gather(v, 1) for a, v in samples.items()}
+    log_joint, accepted = shard.gather(log_joint, 1), shard.gather(accepted)
+    state = MHState(latents={a: shard.gather(v) for a, v in state.latents.items()},
+                    log_joint=shard.gather(state.log_joint),
+                    adapt=AdaptationState(log_scale=shard.gather(state.adapt.log_scale),
+                                          t=shard.gather(state.adapt.t)))
     return MHResult(
         samples={a: v.movedim(0, 1) for a, v in samples.items()},
         log_joint=log_joint.movedim(0, 1),
         accept_rate=accepted / n_samples,
         final_state=state,
     )
+
+
+def _rows_of(state: MHState, rows: slice) -> MHState:
+    return MHState(latents={a: v[rows] for a, v in state.latents.items()},
+                   log_joint=state.log_joint[rows],
+                   adapt=AdaptationState(log_scale=state.adapt.log_scale[rows],
+                                         t=state.adapt.t[rows]))

@@ -33,9 +33,15 @@ How it is expressed in PyTorch, for C chains at once:
   the host in int64 (``NUTSResult.n_leapfrogs``), and counts the lock-step
   leaves and the host reads it ran.
 
+``make_nuts_drive(chain_group=...)`` is the sharded drive: only the
+adaptation reduces over the process group (the acceptance mean, the ε₀
+consensus, the midpoint's Welford merge); the tree build stays on the
+rank, whose host loop runs its own number of leaves and calls no
+collective.
+
 Not ported: the ``"async"``, ``"chunked"`` and ``"scan"`` loop modes, the
-``ring``/``lockstep`` sampling loops of the async drive, its fractional dual
-averaging and masked Welford pushes, and the sharded ``chain_axis`` merge.
+``ring``/``lockstep`` sampling loops of the async drive, and its
+fractional dual averaging and masked Welford pushes.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from .. import settings
+from ..parallel.mesh import cross_mean
 from ..runtime.staging import StagedModel, stage
 from .hmc import (
     DualAveragingState,
@@ -64,6 +71,7 @@ from .hmc import (
     rescue_stuck,
     start_positions,
     welford_covariance,
+    welford_merge_across,
     welford_push_batch,
     welford_variance,
 )
@@ -342,6 +350,7 @@ def make_nuts_drive(
     n_warmup: int,
     *,
     discrete: Optional[Dict[str, Any]] = None,
+    chain_group=None,
 ):
     """Build ``drive(q0, generator, eps_over=None, inv_mass_over=None) →
     (q_f, qs, aps, divs, depths, eps, inv_mass, n_leaps, counts)``; discrete
@@ -354,7 +363,8 @@ def make_nuts_drive(
     each window, then sampling at the averaged step size. ``qs`` is
     (n_samples, C, d); ``aps``, ``divs`` and ``depths`` are (n_samples, C);
     ``n_leaps`` is each chain's int32 leapfrog count; ``counts`` holds the
-    host ints ``leaves`` and ``host_syncs``.
+    host ints ``leaves`` and ``host_syncs``. ``chain_group``: the sharded
+    drive over this rank's ``n_chains`` (see ``hmc.make_hmc_drive``).
     """
     d = staged.dim
     dense = config.mass == "dense"
@@ -368,7 +378,8 @@ def make_nuts_drive(
             im0 = identity_mass(d, dense, dtype=dt, device=dev)
         else:
             im0 = torch.as_tensor(inv_mass_over, dtype=dt, device=dev)
-        eps0 = initial_step_size(config, potential, q0, generator, im0, eps_over)
+        eps0 = initial_step_size(config, potential, q0, generator, im0, eps_over,
+                                 chain_group)
         n_leaps = torch.zeros((n_chains,), dtype=torch.int32, device=dev)
         counts = {"leaves": 0, "host_syncs": 0}
 
@@ -388,8 +399,9 @@ def make_nuts_drive(
             for _ in range(n_steps):
                 eps = torch.exp(da.log_eps) if config.adapt_step_size else eps0
                 q, info = step(q, eps, inv_mass)
-                da = dual_averaging_update(da, torch.mean(info["accept_prob"]),
-                                           config.target_accept)
+                da = dual_averaging_update(
+                    da, cross_mean(torch.mean(info["accept_prob"]), chain_group),
+                    config.target_accept)
                 welford = welford_push_batch(welford, q)
                 ema = 0.9 * ema + 0.1 * info["accept_prob"]
             return rescue_stuck(q, ema, generator), da, welford
@@ -399,6 +411,7 @@ def make_nuts_drive(
             n_half = n_warmup // 2
             q, da, welford = warm_window(q, da, inv_mass, max(n_half, 1))
             if config.adapt_mass:
+                welford = welford_merge_across(welford, chain_group)
                 inv_mass = welford_covariance(welford) if dense else welford_variance(welford)
                 da = DualAveragingState.init(torch.exp(da.log_eps_bar))
             q, da, _ = warm_window(q, da, inv_mass, max(n_warmup - n_half, 1))

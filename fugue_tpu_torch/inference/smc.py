@@ -25,8 +25,22 @@ How it is expressed in PyTorch:
   stage 0; its state is part of the carry (``SMCState``), so a run stopped
   at ``config.max_stages`` and resumed is bitwise the uninterrupted run.
 
-``mesh=`` and the ring gather of the sharded run wait for the parallel
-slice.
+With ``mesh=`` the particles split over the ranks of the mesh's chain
+axis, and every rank runs the ladder on its block:
+
+- per stage only the (N,) log-weight and log-likelihood vectors are
+  all-gathered, and every rank runs ``plogsumexp`` and the resampler on
+  the gathered N, so β, log Z, the stop test and the ancestors are the
+  same on every rank (the resampler's generator is seeded alike on every
+  rank and draws nothing else);
+- a rank fetches its ancestors' particles over the bidirectional ring
+  (``_ring_gather``): particle blocks move between neighbours and are
+  never all-gathered during the ladder;
+- stage 0 and the rejuvenation draw from generators folded with the
+  rank's index, and the rejuvenation's acceptance mean reduces over the
+  ranks;
+- the result holds the global particles, gathered once at the end, on
+  every rank; its ``state`` resumes on any layout.
 """
 
 from __future__ import annotations
@@ -39,9 +53,10 @@ import torch
 from torch.func import vmap
 
 from .. import settings
-from ..core.rng import site_seed
+from ..core.rng import fold_seed, site_seed
 from ..ops import kernels as K
 from ..ops.resampling import RESAMPLERS, effective_sample_size
+from ..parallel.mesh import CHAIN_AXIS, ShardLayout, cross_mean, ring_exchange
 from ..runtime.staging import StagedModel, stage
 from .hmc import hmc_transition
 from .mcmc_utils import AdaptationState, adapt_update
@@ -80,6 +95,8 @@ class SMCState:
     adapt: AdaptationState
     generator_state: Any  # torch.Generator.get_state() after the last stage
     stage: int
+    # a sharded run's seed: its ranks' rejuvenation generators derive from it
+    seed: Optional[int] = None
 
 
 @dataclass
@@ -151,6 +168,41 @@ def _next_beta(beta, log_w, ll, target_ess):
     return torch.clamp(torch.maximum(out, beta + 1e-4), max=1.0)
 
 
+def _ring_gather(latents_local, ancestors, shard: ShardLayout):
+    """This rank's particles of the GLOBAL ancestor indices ``ancestors``
+    (n_local,), fetched over a bidirectional ring: the particle blocks
+    travel between neighbours, ⌊D/2⌋ steps forward and ⌈D/2⌉ − 1 back for
+    D ranks, and each block that arrives fills the slots whose ancestor it
+    holds. No (N, ...) buffer exists on any rank."""
+    n_local = ancestors.shape[0]
+    block_of, pos = ancestors // n_local, ancestors % n_local
+    keys = list(latents_local)
+
+    def take_from(out, block, b):
+        sel = block_of == b
+        return {a: torch.where(sel.reshape(sel.shape + (1,) * (out[a].dim() - 1)),
+                               block[a][pos], out[a]) for a in keys}
+
+    out = take_from({a: torch.zeros_like(v) for a, v in latents_local.items()},
+                    latents_local, shard.index)
+    n, me = shard.size, shard.index
+    fwd = bwd = [latents_local[a] for a in keys]
+    for t in range(1, n // 2 + 1):
+        fwd = ring_exchange(fwd, shard.group, forward=True)  # block me - t
+        out = take_from(out, dict(zip(keys, fwd)), (me - t) % n)
+        if t <= (n - 1) // 2:  # for even D the last backward block came forward
+            bwd = ring_exchange(bwd, shard.group, forward=False)  # block me + t
+            out = take_from(out, dict(zip(keys, bwd)), (me + t) % n)
+    return out
+
+
+def _particle_layout(mesh) -> ShardLayout:
+    """The particles split over the chain axis (the first axis of a mesh
+    without one)."""
+    names = tuple(mesh.mesh_dim_names)
+    return ShardLayout.of(mesh, (CHAIN_AXIS if CHAIN_AXIS in names else names[0],))
+
+
 def _density_parts(staged: StagedModel) -> Callable:
     """Batched latents → (log prior (N,), log likelihood + factors (N,)) in
     one batched model replay."""
@@ -166,13 +218,16 @@ def _density_parts(staged: StagedModel) -> Callable:
     return vmap(parts)
 
 
-def _init_state(staged, config, seed, n, generator) -> SMCState:
+def _init_state(staged, config, seed, n, generator, shard=None) -> SMCState:
     """Stage 0: N prior particles in one batched run, weights 1/N (the
     prior cancels in the importance weight, so only the likelihood
-    enters)."""
+    enters). A sharded run draws this rank's block from a folded seed."""
     dt = settings.real_dtype()
     dev = staged.device
-    latents = staged.sample_prior_batch(site_seed(seed, "smc/init"), n)
+    init_seed = site_seed(seed, "smc/init")
+    if shard is not None:
+        init_seed = fold_seed(init_seed, shard.seed_index)
+    latents = staged.sample_prior_batch(init_seed, n)
     _, ll = _density_parts(staged)(latents)
     return SMCState(
         particles=latents,
@@ -183,13 +238,15 @@ def _init_state(staged, config, seed, n, generator) -> SMCState:
         adapt=AdaptationState.init(len(staged.sites), config.initial_scale, dtype=dt, device=dev),
         generator_state=generator.get_state(),
         stage=0,
+        seed=None if shard is None else int(seed),
     )
 
 
-def _rejuvenate_mh(staged, config, latents, adapt, beta, generator):
+def _rejuvenate_mh(staged, config, latents, adapt, beta, generator, group=None):
     """``rejuvenation_steps`` π_β-invariant single-site MH sweeps of all
     particles, with one proposal scale per site shared by the particles and
-    adapted from their mean acceptance."""
+    adapted from their mean acceptance (over every rank's particles in a
+    sharded run's ``group``)."""
     parts = _density_parts(staged)
 
     def tempered(lat):
@@ -201,7 +258,7 @@ def _rejuvenate_mh(staged, config, latents, adapt, beta, generator):
     for _ in range(config.rejuvenation_steps):
         state, accepted = mh_step(staged, state, generator, False, config.target_accept,
                                   log_density_fn=tempered)
-        acc_mean = torch.mean(accepted.to(adapt.log_scale.dtype))
+        acc_mean = cross_mean(torch.mean(accepted.to(adapt.log_scale.dtype)), group)
         ones = torch.full((n_sites,), 1.0 / n_sites, dtype=adapt.log_scale.dtype,
                           device=adapt.log_scale.device)
         adapt = adapt_update(adapt, ones, acc_mean, target=config.target_accept)
@@ -209,7 +266,7 @@ def _rejuvenate_mh(staged, config, latents, adapt, beta, generator):
     return state.latents, adapt
 
 
-def _rejuvenate_hmc(staged, config, latents, adapt, beta, generator):
+def _rejuvenate_hmc(staged, config, latents, adapt, beta, generator, group=None):
     """``rejuvenation_steps`` π_β-invariant HMC moves on the flat
     unconstrained space; the step size (slot 0 of the adaptation state, as
     log ε) follows the particles' mean acceptance between moves."""
@@ -227,51 +284,85 @@ def _rejuvenate_hmc(staged, config, latents, adapt, beta, generator):
         log_u = torch.log1p(-torch.rand((n,), generator=generator, device=dev, dtype=dt))
         z, info = hmc_transition(u_beta, z, p, log_u, eps, config.hmc_leapfrog, inv_mass)
         step = torch.zeros_like(adapt.log_scale)
-        step[0] = 0.5 * (torch.mean(info.accept_prob) - 0.8)
+        step[0] = 0.5 * (cross_mean(torch.mean(info.accept_prob), group) - 0.8)
         adapt = AdaptationState(log_scale=adapt.log_scale + step, t=adapt.t)
     return vmap(lambda zz: staged.constrain(zz)[0])(z), adapt
 
 
-def _ladder(staged, config, state: SMCState, beta_f: float, n, generator) -> SMCState:
+def _ladder(staged, config, state: SMCState, beta_f: float, n, generator,
+            shard: Optional[ShardLayout] = None) -> SMCState:
     """Run ladder stages from ``state`` (whose β the host holds as
-    ``beta_f``) until β = 1 or the stage cap."""
+    ``beta_f``) until β = 1 or the stage cap. With a ``shard`` the state
+    holds this rank's block of the particles (see the module docstring)."""
     resampler = RESAMPLERS[config.resampling]
     rejuvenate = _rejuvenate_hmc if config.rejuvenation == "hmc" else _rejuvenate_mh
     loglik = _density_parts(staged)
     target_ess = config.ess_threshold * n
     cap = MAX_STAGES if config.max_stages is None else min(MAX_STAGES, config.max_stages)
+    group = None if shard is None else shard.group
 
     latents, log_w, ll = state.particles, state.log_weights, state.log_likelihoods
     beta, log_z, adapt, stage_i = state.beta, state.log_evidence, state.adapt, state.stage
     while beta_f < 1.0 and stage_i < cap:
-        beta_new = _next_beta(beta, log_w, ll, target_ess)
+        # the (N,) vectors, gathered so that every rank computes the same β,
+        # log Z and ancestors; the particles stay on their ranks
+        lwg = log_w if shard is None else shard.gather(log_w)
+        llg = ll if shard is None else shard.gather(ll)
+        beta_new = _next_beta(beta, lwg, llg, target_ess)
         delta = beta_new - beta
         # unbiased log-evidence increment under the current normalized
         # weights: log Σ_i w̄_i exp(δ·ll_i)
-        log_wbar = log_w - K.plogsumexp(log_w)
-        log_z = log_z + K.plogsumexp(log_wbar + delta * ll)
-        log_w = log_w + delta * ll
+        log_wbar = lwg - K.plogsumexp(lwg)
+        log_z = log_z + K.plogsumexp(log_wbar + delta * llg)
+        lw_all = lwg + delta * llg
+        log_w = lw_all if shard is None else lw_all[shard.rows(log_w.shape[0])]
         beta_f = float(beta_new)  # the one read of β per stage
         if beta_f < 1.0:  # no terminal resample
-            idx = resampler(generator, log_w)
-            latents = {a: v[idx] for a, v in latents.items()}
+            idx = resampler(generator, lw_all)
+            if shard is None:
+                latents = {a: v[idx] for a, v in latents.items()}
+                rejuv_gen = generator
+            else:
+                idx = idx[shard.rows(log_w.shape[0])]
+                latents = _ring_gather(latents, idx, shard)
+                rejuv_gen = torch.Generator(device=log_w.device).manual_seed(
+                    fold_seed(state.seed, 5, shard.seed_index, stage_i))
             log_w = torch.zeros_like(log_w)
             if config.rejuvenation_steps > 0:
-                latents, adapt = rejuvenate(staged, config, latents, adapt, beta_new, generator)
+                latents, adapt = rejuvenate(staged, config, latents, adapt, beta_new,
+                                            rejuv_gen, group)
                 ll = loglik(latents)[1]
             else:
-                ll = ll[idx]
+                ll = llg[idx]
         beta, stage_i = beta_new, stage_i + 1
-    return SMCState(latents, log_w, ll, beta, log_z, adapt, generator.get_state(), stage_i)
+    return SMCState(latents, log_w, ll, beta, log_z, adapt, generator.get_state(), stage_i,
+                    state.seed)
 
 
-def _reweight(state: SMCState, n) -> SMCState:
+def _reweight(state: SMCState, n, shard=None) -> SMCState:
     """The zero-rejuvenation shortcut: one importance reweight by the full
     likelihood."""
     ll = state.log_likelihoods
-    log_z = K.plogsumexp(ll) - math.log(n)
+    log_z = K.plogsumexp(ll if shard is None else shard.gather(ll)) - math.log(n)
     return SMCState(state.particles, ll, ll, torch.ones_like(state.beta), log_z,
-                    state.adapt, state.generator_state, 1)
+                    state.adapt, state.generator_state, 1, state.seed)
+
+
+def _local(state: SMCState, shard: ShardLayout) -> SMCState:
+    """This rank's block of a global state (a resumed sharded run)."""
+    rows = shard.rows(shard.split(state.log_weights.shape[0], "n_particles"))
+    return SMCState({a: v[rows] for a, v in state.particles.items()},
+                    state.log_weights[rows], state.log_likelihoods[rows], state.beta,
+                    state.log_evidence, state.adapt, state.generator_state, state.stage,
+                    state.seed)
+
+
+def _global(state: SMCState, shard: ShardLayout) -> SMCState:
+    """The global state from every rank's block: one gather per tensor."""
+    return SMCState({a: shard.gather(v) for a, v in state.particles.items()},
+                    shard.gather(state.log_weights), shard.gather(state.log_likelihoods),
+                    state.beta, state.log_evidence, state.adapt, state.generator_state,
+                    state.stage, state.seed)
 
 
 def adaptive_smc(
@@ -284,6 +375,7 @@ def adaptive_smc(
     staged: Optional[StagedModel] = None,
     device="cuda",
     resume: Optional[Union[SMCResult, SMCState]] = None,
+    mesh=None,
 ) -> SMCResult:
     """Likelihood-tempered adaptive SMC with ``n_particles`` particles.
 
@@ -294,7 +386,11 @@ def adaptive_smc(
     ``resume``: an ``SMCResult`` (or its ``state``) whose ladder stopped
     short of β = 1 at ``config.max_stages``. The run continues from that
     state, generator included, and is bitwise the uninterrupted run; the
-    seed is then unused. ``log_evidence`` keeps accumulating."""
+    seed is then unused. ``log_evidence`` keeps accumulating.
+
+    ``mesh``: a ``DeviceMesh``; every rank calls this with the same
+    arguments, the particles split over the mesh's chain axis, and every
+    rank returns the global result (see the module docstring)."""
     if staged is None:
         staged = stage(model_fn, *model_args, device=device)
     if config.rejuvenation not in _REJUVENATION:
@@ -305,6 +401,7 @@ def adaptive_smc(
         raise ValueError("HMC rejuvenation requires continuous latents only; use "
                          "rejuvenation='mh' for models with discrete sites")
     n = int(n_particles)
+    shard = None if mesh is None else _particle_layout(mesh)
     generator = torch.Generator(device=staged.device)
     if resume is not None:
         state = resume.state if isinstance(resume, SMCResult) else resume
@@ -313,17 +410,24 @@ def adaptive_smc(
         if state.log_weights.shape[0] != n:
             raise ValueError(f"resume state holds {state.log_weights.shape[0]} particles; "
                              f"this run is configured for {n}")
+        if (shard is None) != (state.seed is None):
+            raise ValueError("resume a sharded run with mesh=, an unsharded one without")
         generator.set_state(state.generator_state)
         beta_f = float(state.beta)
+        if shard is not None:
+            state = _local(state, shard)
     else:
         generator.manual_seed(int(seed))
-        state = _init_state(staged, config, seed, n, generator)
+        n_init = n if shard is None else shard.split(n, "n_particles")
+        state = _init_state(staged, config, seed, n_init, generator, shard)
         beta_f = 0.0
 
     if config.rejuvenation_steps == 0 and config.ess_threshold <= 0.0:
-        state = _reweight(state, n)
+        state = _reweight(state, n, shard)
     else:
-        state = _ladder(staged, config, state, beta_f, n, generator)
+        state = _ladder(staged, config, state, beta_f, n, generator, shard)
+    if shard is not None:
+        state = _global(state, shard)
 
     log_w = state.log_weights
     weights = torch.exp(log_w - K.plogsumexp(log_w))

@@ -15,7 +15,9 @@ run at once, and states migrate from the hot, flattened rungs down to
   one uniform per pair.
 - Per-rung step sizes adapt during warmup by the Robbins–Monro rule
   ε ← ε · exp((t + 1)^-0.6 · (ā_k − target)), ā_k the rung's cross-chain
-  mean acceptance; hot rungs tolerate larger steps.
+  mean acceptance; hot rungs tolerate larger steps. In the sharded drive
+  (``chain_group``) ā_k is the mean over every rank's chains; the ladder
+  and the swaps stay on the rank.
 
 ``pt_step`` holds one transition's arithmetic and takes its noise
 (momenta, accept log-uniforms, swap uniforms) as arguments, so the tests
@@ -33,6 +35,7 @@ from torch.func import grad_and_value, vmap
 
 from .. import settings
 from ..core.rng import fold_seed
+from ..parallel.mesh import cross_mean
 from ..runtime.staging import StagedModel, stage
 from .hmc import constrain_positions, hmc_transition, initial_positions, prior_positions
 
@@ -99,12 +102,13 @@ def swap_phase(q, ll, betas, parity: int, u):
 
 
 def pt_step(staged: StagedModel, config: PTConfig, betas, q, eps, t: int, adapting: bool,
-            p, log_u, u_swap, discrete=None):
+            p, log_u, u_swap, discrete=None, chain_group=None):
     """One transition of the (K, C, d) ladder, given its noise: a batched
     HMC transition of every replica, the swap phase of parity t mod 2, and
     the warmup's per-rung step-size update. ``p`` (K, C, d), ``log_u`` (K,
     C), ``u_swap`` (K, C). Returns (q, eps, ll (K, C), HMC accept prob (K,
-    C), pair acceptances (K, C))."""
+    C), pair acceptances (K, C)). ``chain_group``: the rung means reduce
+    over the process group's chains."""
     K, C, d = q.shape
     parts_at = _parts(staged, discrete)
 
@@ -122,18 +126,20 @@ def pt_step(staged: StagedModel, config: PTConfig, betas, q, eps, t: int, adapti
     q_new = q_new.reshape(K, C, d)
     ll = vmap(lambda z: parts_at(z)[1])(q_new.reshape(K * C, d)).reshape(K, C)
     q_new, ll, pair_acc = swap_phase(q_new, ll, betas, t % 2, u_swap)
-    acc_k = torch.mean(info.accept_prob.reshape(K, C), dim=1)
+    acc_k = cross_mean(torch.mean(info.accept_prob.reshape(K, C), dim=1), chain_group)
     if adapting:
         eps = eps * torch.exp((t + 1.0) ** -0.6 * (acc_k - config.target_accept))
     return q_new, eps, ll, info.accept_prob.reshape(K, C), pair_acc
 
 
 def make_pt_drive(staged: StagedModel, config: PTConfig, n_chains: int, n_samples: int,
-                  n_warmup: int, *, discrete: Optional[Dict[str, Any]] = None):
+                  n_warmup: int, *, discrete: Optional[Dict[str, Any]] = None,
+                  chain_group=None):
     """Build ``drive(generator, seed, q_over=None, eps_over=None) → (q_f,
     eps_f, q1s (n_samples, C, d), accs (n_samples, K), pair_accs
     (n_samples, K, C))``; ``q_over`` (K, C, d) and ``eps_over`` (K,)
-    resume a run."""
+    resume a run. ``chain_group``: the sharded drive over this rank's
+    ``n_chains``; ``accs`` are then means over every rank's chains."""
     K, C, d = config.n_temps, n_chains, staged.dim
     betas = geometric_ladder(K, config.beta_min, device=staged.device)
 
@@ -156,10 +162,10 @@ def make_pt_drive(staged: StagedModel, config: PTConfig, n_chains: int, n_sample
             log_u = torch.log1p(-torch.rand((K, C), generator=generator, device=dev, dtype=dt))
             u_swap = 1.0 - torch.rand((K, C), generator=generator, device=dev, dtype=dt)
             q, eps, _, ap, pair_acc = pt_step(staged, config, betas, q, eps, t, t < n_warmup,
-                                              p, log_u, u_swap, discrete)
+                                              p, log_u, u_swap, discrete, chain_group)
             if t >= n_warmup:
                 q1s.append(q[-1])
-                accs.append(torch.mean(ap, dim=1))
+                accs.append(cross_mean(torch.mean(ap, dim=1), chain_group))
                 pair_accs.append(pair_acc)
         return (q, eps, torch.stack(q1s) if q1s else q.new_zeros((0, C, d)),
                 torch.stack(accs) if accs else q.new_zeros((0, K)),
@@ -217,7 +223,13 @@ def pt_chain(
         overrides = dict(q_over=q_resume, eps_over=eps_resume)
     drive = make_pt_drive(staged, config, n_chains, n_samples, n_warmup, discrete=discrete)
     generator = torch.Generator(device=staged.device).manual_seed(int(seed))
-    q_f, eps_f, q1s, accs, pair_accs = drive(generator, int(seed), **overrides)
+    return pt_result(staged, config, *drive(generator, int(seed), **overrides))
+
+
+def pt_result(staged: StagedModel, config: PTConfig, q_f, eps_f, q1s, accs, pair_accs
+              ) -> PTResult:
+    """The ``PTResult`` of a drive's outputs."""
+    K = config.n_temps
     positions = q1s.movedim(0, 1)  # (C, n_samples, d)
     # the last rung is never a pair's left index: drop it before the mean
     swap_rate = torch.nanmean(pair_accs[:, :-1, :].movedim(1, 0).reshape(K - 1, -1), dim=1) \

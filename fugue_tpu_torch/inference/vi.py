@@ -26,6 +26,12 @@ test hands the drive another object and replays the JAX key schedule. The
 Beta sites' gammas carry the implicit reparameterization gradient
 ``torch._standard_gamma_grad``, which is not JAX's ``random_gamma_grad``:
 the two differ by up to about 3e-4 relative.
+
+``mesh=`` runs the optimization over the ranks of a ``DeviceMesh``
+(``parallel.sharded.sharded_vi``): each rank's loss is its share of the
+negative ELBO, and its gradient and value are summed over the ranks after
+the backward pass and before the optimizer step, so every rank applies the
+same update and the parameters stay the same on every rank.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from torch.func import vmap
 from .. import settings
 from ..core.numerics import log_beta
 from ..errors import ErrorCode, FugueError
+from ..parallel.mesh import cross_sum
 from ..runtime.staging import StagedModel, stage
 
 
@@ -676,21 +683,29 @@ def _optimizer(config: VIConfig):
 # ---------------------------------------------------------------------------
 
 
-def _iteration(guide, loss_fn, opt, theta, draws):
-    """One optimizer step: (clamped new theta, the ELBO at the old theta)."""
+def _iteration(guide, loss_fn, opt, theta, draws, group=None):
+    """One optimizer step: (clamped new theta, the ELBO at the old theta).
+    With a process ``group`` the gradient and the loss are summed over the
+    ranks (one all-reduce) after the backward pass, before the step."""
     th = theta.detach().requires_grad_(True)
     loss = loss_fn(th, draws)
     (g,) = torch.autograd.grad(loss, th)
+    loss = loss.detach()
+    if group is not None:
+        packed = cross_sum(torch.cat([g, loss.reshape(1)]), group)
+        g, loss = packed[:-1], packed[-1]
     with torch.no_grad():
-        return guide.clamp_flat(opt.step(th.detach(), g)), -loss.detach()
+        return guide.clamp_flat(opt.step(th.detach(), g)), -loss
 
 
-def _drive(guide, loss_fn, config: VIConfig, theta, draws) -> VIResult:
+def _drive(guide, loss_fn, config: VIConfig, theta, draws, group=None) -> VIResult:
     """``n_chunks = max(1, n_iterations // check_every)`` chunks of
     ``check_every`` iterations (an ``n_iterations`` below ``check_every``
     runs one whole chunk). After each chunk, when 2 * plateau_window fits in
     the history and has run, the means of the last two windows are compared
-    (one bool read), and the run stops at the first chunk that plateaus."""
+    (one bool read), and the run stops at the first chunk that plateaus.
+    ``group``: the sharded drive (``_iteration``); the history is then the
+    same on every rank, and so is the stop."""
     ce = config.check_every
     n_chunks = max(1, config.n_iterations // ce)
     hist_len = n_chunks * ce
@@ -701,7 +716,7 @@ def _drive(guide, loss_fn, config: VIConfig, theta, draws) -> VIResult:
     c, conv = 0, False
     while c < n_chunks and not conv:
         for i in range(ce):
-            theta, elbo_i = _iteration(guide, loss_fn, opt, theta, draws)
+            theta, elbo_i = _iteration(guide, loss_fn, opt, theta, draws, group)
             hist[c * ce + i] = elbo_i
         total = (c + 1) * ce
         if plateau_on and total >= 2 * w:
@@ -749,6 +764,8 @@ def optimize_fullrank_vi(
     resume=None,
     device="cuda",
     draws=None,
+    mesh=None,
+    shard: str = "auto",
 ) -> VIResult:
     """Full-rank ADVI: pathwise gradients of E_q[log p(x(z)) + log|J|] +
     H(q), annealed Adam, clamps and the plateau stop.
@@ -756,9 +773,15 @@ def optimize_fullrank_vi(
     ``resume``: a previous ``VIResult`` (of this package or the JAX
     package) or its params; the run continues from those parameters with
     fresh Adam moments and schedule. ``draws`` replaces the generator seeded
-    from ``seed`` (see ``GeneratorDraws``)."""
+    from ``seed`` (see ``GeneratorDraws``). ``mesh``: run over the mesh's
+    ranks (``parallel.sharded.sharded_vi``, ``shard=`` its mode)."""
     if staged is None:
         staged = stage(model_fn, *model_args, device=device)
+    if mesh is not None:
+        from ..parallel.sharded import sharded_vi
+
+        return sharded_vi(seed, config=config, mesh=mesh, guide="fullrank", shard=shard,
+                          staged=staged, resume=resume)
     guide = FullRankGuide(staged)
     draws = _draws_for(seed if draws is None else draws, staged.device)
     return _drive(guide, _loss(guide, config.n_samples), config, _start(guide, resume), draws)
@@ -774,13 +797,20 @@ def optimize_meanfield_vi(
     resume=None,
     device="cuda",
     draws=None,
+    mesh=None,
+    shard: str = "auto",
 ) -> VIResult:
     """Mean-field VI with pathwise gradients, Adam or Robbins-Monro SGD,
     clamps and the ELBO-plateau stop. Models with a site that has no
-    factorized family take the unconstrained diagonal guide. ``resume``
-    and ``draws`` as in ``optimize_fullrank_vi``."""
+    factorized family take the unconstrained diagonal guide. ``resume``,
+    ``draws``, ``mesh`` and ``shard`` as in ``optimize_fullrank_vi``."""
     if staged is None:
         staged = stage(model_fn, *model_args, device=device)
+    if mesh is not None:
+        from ..parallel.sharded import sharded_vi
+
+        return sharded_vi(seed, config=config, mesh=mesh, guide="meanfield", shard=shard,
+                          staged=staged, resume=resume)
     guide = _meanfield_guide_for(staged)
     draws = _draws_for(seed if draws is None else draws, staged.device)
     return _drive(guide, _loss(guide, config.n_samples), config, _start(guide, resume), draws)

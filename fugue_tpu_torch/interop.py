@@ -21,7 +21,10 @@ Likewise the JAX ``SMCResult.state`` of a ladder stopped at
 adaptation arrays, the stage counter) becomes this package's ``SMCState``
 through ``smc_state_from_numpy``, and ``adaptive_smc(resume=...)`` finishes
 the ladder here. The JAX key does not carry over: the caller seeds the
-generator that draws the rest of the run.
+generator that draws the rest of the run. A JAX ``sharded_smc`` state (its
+arrays are global) resumes over the port's ranks with ``seed=`` and
+``adaptive_smc(mesh=...)``; the sharded drivers' other results are the
+single-device dataclasses, so the converters above carry them too.
 
 A JAX ``VIResult.params`` (``{address: {loc, raw_scale | raw_a, raw_b}}``,
 ``{loc, raw_scale}`` or ``{loc, raw_tril}``) or its numpy leaves become
@@ -131,11 +134,14 @@ def mh_state_from_numpy(latents: Dict[str, np.ndarray], log_joint, adapt_log_sca
 def smc_state_from_numpy(particles: Dict[str, np.ndarray], log_weights, log_likelihoods,
                          beta, log_evidence, adapt_log_scale, adapt_t, stage: int, *,
                          generator: torch.Generator, device="cuda",
-                         dtype=torch.float32) -> SMCState:
+                         dtype=torch.float32, seed=None) -> SMCState:
     """An SMC ladder's carry from numpy arrays: particles (N, *site_shape)
     per address, log-weights and log-likelihoods (N,), scalar β and log Z,
     the (n_sites,) adaptation arrays and the stage counter. ``generator``
-    (on ``device``, seeded by the caller) draws the rest of the run."""
+    (on ``device``, seeded by the caller) draws the rest of the run.
+    ``seed``: the carry of a sharded run (a JAX ``sharded_smc`` state, its
+    global arrays), which ``adaptive_smc(mesh=..., resume=...)`` finishes;
+    its ranks' rejuvenation streams derive from it."""
     lw = tensor_from_numpy(log_weights, device=device, dtype=dtype)
     ll = tensor_from_numpy(log_likelihoods, device=device, dtype=dtype)
     lat = {str(a): tensor_from_numpy(v, device=device, dtype=dtype) for a, v in particles.items()}
@@ -157,7 +163,8 @@ def smc_state_from_numpy(particles: Dict[str, np.ndarray], log_weights, log_like
     return SMCState(particles=lat, log_weights=lw, log_likelihoods=ll, beta=scalar(beta),
                     log_evidence=scalar(log_evidence),
                     adapt=AdaptationState(log_scale=ls, t=t),
-                    generator_state=generator.get_state(), stage=int(stage))
+                    generator_state=generator.get_state(), stage=int(stage),
+                    seed=None if seed is None else int(seed))
 
 
 def vi_params_from_numpy(params, *, device="cuda", dtype=torch.float32):

@@ -14,8 +14,12 @@ the same structure has the same keys. Leaves are tensors, numpy arrays,
 Python numbers and ``torch.Generator``s, whose state (``get_state()``, a
 uint8 tensor) is stored like the JAX key. ``None`` is an empty subtree.
 
-The orbax sharded checkpoints of the JAX package are the multi-host path
-and wait for the port's parallel layer.
+``save_checkpoint_sharded`` and ``load_checkpoint_sharded`` are the
+multi-rank path (the JAX package's orbax checkpoints), over
+``torch.distributed.checkpoint``: a leaf that is a DTensor sharded over the
+chain axis (``parallel.mesh.chain_sharded``) is written by each rank as its
+own block, never gathered, and restored into the template's placements, so
+each rank reads only the rows it owns. ``path`` is then a directory.
 """
 
 from __future__ import annotations
@@ -102,6 +106,64 @@ def _restore(template, array: np.ndarray):
     if isinstance(template, (np.ndarray, np.generic)):
         return np.asarray(array, dtype=template.dtype)
     return type(template)(array.item())
+
+
+def _dcp_leaf(leaf):
+    """A leaf as ``torch.distributed.checkpoint`` stores it: a generator as
+    its state, a numpy array as a tensor; tensors, DTensors and numbers as
+    they are."""
+    if isinstance(leaf, torch.Generator):
+        return leaf.get_state()
+    if isinstance(leaf, (np.ndarray, np.generic)):
+        return torch.as_tensor(np.asarray(leaf))
+    return leaf
+
+
+def save_checkpoint_sharded(path: str, state: Any) -> None:
+    """Checkpoint a tree whose tensor leaves may be DTensors sharded over a
+    device mesh: every rank calls this, and each writes only its own
+    shards (replicated leaves are written once). ``path`` is a directory."""
+    import torch.distributed.checkpoint as dcp
+
+    flat: Dict[str, Any] = {}
+
+    def put(key, leaf):
+        flat[key] = _dcp_leaf(leaf)
+        return leaf
+
+    _map(state, put)
+    dcp.save(flat, checkpoint_id=os.fspath(path))
+
+
+def load_checkpoint_sharded(path: str, template: Any) -> Any:
+    """Restore a tree saved by ``save_checkpoint_sharded``. ``template``
+    supplies the structure and each leaf's device, dtype and placements: a
+    DTensor leaf comes back as a DTensor with this rank's shard read in."""
+    import torch.distributed.checkpoint as dcp
+
+    flat: Dict[str, Any] = {}
+
+    def put(key, leaf):
+        x = _dcp_leaf(leaf)
+        flat[key] = x.clone() if isinstance(x, torch.Tensor) else x
+        return leaf
+
+    _map(template, put)
+    dcp.load(flat, checkpoint_id=os.fspath(path))
+
+    def restore(key, leaf):
+        x = flat[key]
+        if isinstance(leaf, torch.Generator):
+            g = torch.Generator(device=leaf.device)
+            g.set_state(x.cpu())
+            return g
+        if isinstance(leaf, torch.Tensor):
+            return x
+        if isinstance(leaf, (np.ndarray, np.generic)):
+            return np.asarray(x.cpu().numpy(), dtype=leaf.dtype)
+        return type(leaf)(x)
+
+    return _map(template, restore)
 
 
 def load_checkpoint(path: str, template: Any) -> Any:

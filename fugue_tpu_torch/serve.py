@@ -15,10 +15,14 @@ thread, whose grad mode is the default (enabled); the engines take their
 gradients through ``torch.func`` and need no mode set elsewhere.
 
 The methods and their params, defaults, result keys and error codes are
-the JAX service's, with two differences: ``hmc.sharded`` (the multi-device
-engine) is not registered until the port's parallel layer exists and
-answers -32601, and ``vi.run`` rejects ``n_iterations < 1`` and
-``posterior_draws < 1`` with -32602.
+the JAX service's, with one difference: ``vi.run`` rejects
+``n_iterations < 1`` and ``posterior_draws < 1`` with -32602.
+``hmc.sharded`` runs ``parallel.sharded.sharded_hmc_chain`` over the
+process's one-rank chain mesh (a group the service makes when there is
+none); a service that is one of several ranks answers it with -32000,
+since a request reaches only its own process. Replies that
+summarize draws (``hmc.sharded``, ``vi.run``) compute the summaries on the
+device and read them to the host once.
 
 Usage::
 
@@ -53,6 +57,18 @@ def _jsonable(x):
     if isinstance(x, (np.floating, np.integer, np.bool_)):
         return x.item()
     return x
+
+
+def _split_rows(stats: Dict[str, Any], names) -> Dict[str, Dict[str, list]]:
+    """``{address: (len(names), k) tensor}`` → ``{address: {name: [k
+    floats]}}``, with ONE device-to-host read for all of them."""
+    host = torch.cat(list(stats.values()), dim=1).cpu().numpy() if stats else None
+    out, off = {}, 0
+    for addr, t in stats.items():
+        k = t.shape[1]
+        out[addr] = {name: host[i, off:off + k].tolist() for i, name in enumerate(names)}
+        off += k
+    return out
 
 
 class ServiceError(Exception):
@@ -91,6 +107,7 @@ class FugueService:
             "chees.new": self._chees_new,
             "chees.step": self._chees_step,
             "vi.run": self._vi_run,
+            "hmc.sharded": self._hmc_sharded,
             "methods": lambda p: {"methods": sorted(self.methods)},
         }
 
@@ -352,11 +369,11 @@ class FugueService:
                     else optimize_meanfield_vi)
         res = optimize(self._key(p, 8), staged=staged, config=cfg)
         draws = res.posterior_sample(self._key(p, 9), n_draws)
-        posterior = {}
-        for addr, vals in draws.items():
-            flat = vals.detach().to(torch.float64).reshape(vals.shape[0], -1)
-            posterior[addr] = {"mean": flat.mean(dim=0),
-                               "sd": flat.std(dim=0, unbiased=False)}
+        flats = {addr: vals.detach().to(torch.float64).reshape(vals.shape[0], -1)
+                 for addr, vals in draws.items()}
+        posterior = _split_rows(
+            {addr: torch.stack([f.mean(dim=0), f.std(dim=0, unbiased=False)])
+             for addr, f in flats.items()}, ("mean", "sd"))
         hist = np.asarray(res.elbo_history, np.float64)
         # downsample for the wire but always keep the final point
         stride = max(1, len(hist) // 200)
@@ -369,6 +386,48 @@ class FugueService:
             "final_elbo": float(hist[-1]),
             "elbo_history": hist[idx].tolist(),
             "posterior": posterior,
+        }
+
+    def _hmc_sharded(self, p):
+        """One-shot HMC through the sharded driver over the process's
+        one-rank chain mesh: ``sharded_hmc_chain`` with ``n_chains``
+        (default 8), and per continuous site the posterior mean,
+        sd and split-R-hat of each element, computed on the device and read
+        back once. A process that is one of several ranks answers -32000."""
+        import torch.distributed as dist
+
+        from .inference.mcmc_utils import split_r_hat
+        from .parallel.distributed import config_from_env
+        from .parallel.mesh import make_chain_mesh
+        from .parallel.sharded import sharded_hmc_chain
+
+        _, _, staged = self._model(p)
+        # a request reaches one process; the other ranks would never join
+        # its collectives
+        if (dist.get_world_size() if dist.is_initialized()
+                else config_from_env().num_processes or 1) > 1:
+            raise ServiceError(-32000, "hmc.sharded runs at one rank: the other ranks of "
+                                       "this process group do not receive the request")
+        mesh = make_chain_mesh(device=self.device)
+        n_chains = int(p.get("n_chains", 8))
+        res = sharded_hmc_chain(
+            self._key(p, 7), staged=staged,
+            n_samples=int(p.get("n_samples", 500)),
+            n_warmup=int(p.get("n_warmup", 500)),
+            n_chains=n_chains, mesh=mesh,
+        )
+        rows = {}
+        for s in staged.continuous_sites:
+            vals = res.samples[s.address].to(torch.float64)
+            flat = vals.reshape(vals.shape[0], vals.shape[1], -1)
+            rows[s.address] = torch.stack([
+                flat.mean(dim=(0, 1)), flat.std(dim=(0, 1), unbiased=False),
+                split_r_hat(flat.movedim(2, 0))])
+        return {
+            "n_devices": mesh.size(),
+            "n_chains": n_chains,
+            "step_size": res.step_size,
+            "summaries": _split_rows(rows, ("mean", "sd", "r_hat")),
         }
 
     def _grid(self, p):

@@ -1,10 +1,11 @@
 """The PyTorch port's JSON-RPC service (``fugue_tpu_torch/serve.py``) on the
-CPU: every case of the JAX package's ``tests/test_serve.py`` but
-``hmc.sharded`` (the multi-device engine, not registered in the port), on
+CPU: every case of the JAX package's ``tests/test_serve.py``, on
 ``FugueService(device="cpu")`` at reduced iterations, float64; plus the
 same ``compile`` result and error codes as the JAX service for the same
-requests, the registered methods (the JAX service's minus ``hmc.sharded``),
-the browser client's calls and one HTTP round trip.
+requests, the registered methods (the JAX service's), the browser client's
+calls and one HTTP round trip. ``hmc.sharded`` (the multi-device engine)
+runs over a one-rank process group here (``tests/test_torch_parallel.py``
+checks its reply).
 
 Intended divergence (ROADMAP §C): ``vi.run`` with ``n_iterations=0`` or
 ``posterior_draws=0`` is a -32602 validation error; the JAX service raises
@@ -197,7 +198,7 @@ def test_compile_matches_the_jax_service(svc):
 
 ERROR_REQUESTS = [
     {"method": "nope"},
-    {"method": "hmc.sharded", "params": {"model_id": "model-1"}},
+    {"method": "hmc.sharded", "params": {"model_id": "model-9"}},
     {"method": "mh.step", "params": {"session_id": "x"}},
     {"method": "mh.history", "params": {"session_id": "x", "address": "p"}},
     {"method": "compile", "params": {}},
@@ -211,15 +212,11 @@ ERROR_REQUESTS = [
 
 @pytest.mark.parametrize("req", ERROR_REQUESTS, ids=lambda r: r["method"])
 def test_error_codes_match_the_jax_service(svc, req):
-    """The same error code as the JAX service for the same request
-    (``hmc.sharded``, unregistered in the port, answers -32601)."""
+    """The same error code as the JAX service for the same request."""
     jsvc = jserve.FugueService(seed=0)
     for s in (svc, jsvc):
         s.handle({"method": "compile", "params": {"source": COIN, "data": {"flips": FLIPS}}})
     ours = svc.handle(req)
-    if req["method"] == "hmc.sharded":  # the JAX service would run it
-        assert ours["error"]["code"] == -32601
-        return
     theirs = jsvc.handle(req)
     assert ours["error"]["code"] == theirs["error"]["code"]
     assert ours["error"]["message"].split(":")[0] == theirs["error"]["message"].split(":")[0]
@@ -232,17 +229,17 @@ def test_soft_errors_surface_as_warnings(svc):
 
 def test_methods_are_the_jax_services_but_the_sharded_engine(svc):
     ours = set(_call(svc, "methods")["methods"])
-    assert ours == set(jserve.FugueService().methods) - {"hmc.sharded"}
+    assert ours == set(jserve.FugueService().methods)  # hmc.sharded included
     assert ours == set(svc.methods)
 
 
 def test_js_client_methods_match_service(svc):
-    """docs/explorables/fugue_client.js calls only registered methods, and
-    every registered method but ``methods``, except the sharded engine."""
+    """docs/explorables/fugue_client.js calls only registered methods (the
+    sharded engine too), and every registered method but ``methods``."""
     js = open(os.path.join(REPO, "docs", "explorables", "fugue_client.js")).read()
     called = set(re.findall(r'this\.rpc\(\s*"([^"]+)"', js))
     registered = set(svc.methods)
-    assert called - registered == {"hmc.sharded"}
+    assert called - registered == set()
     assert registered - called <= {"methods"}
 
 

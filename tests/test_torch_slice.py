@@ -7,8 +7,8 @@
 - The port imports no JAX: a static walk over its sources with ``ast``.
 - The flat API is the slices' subset of fugue_tpu's.
 - Every entry point (the serving surface's too: the service, ``serve``, the
-  DSL's ``build`` and sessions) runs on the card unless the caller names a
-  device; the
+  DSL's ``build`` and sessions; the multi-device layer's drivers, meshes
+  and bootstrap) runs on the card unless the caller names a device; the
   batched ``simulate_batch``/``replay_partial_batch`` run on their staged
   model's device, which is the card unless the caller names another.
 """
@@ -26,7 +26,7 @@ import torch
 import __graft_entry__
 import fugue_tpu as ft
 import fugue_tpu_torch as ftt
-from fugue_tpu_torch import interop, serve, settings
+from fugue_tpu_torch import interop, parallel, serve, settings
 from fugue_tpu_torch.dsl import sessions
 from fugue_tpu_torch.dsl.compiler import CompiledModel
 from fugue_tpu_torch.interop import hmc_state_from_numpy, tensor_from_numpy
@@ -75,7 +75,14 @@ ENTRY_POINTS = (ftt.stage, ftt.StagedModel, ftt.hmc_chain, ftt.HmcSession, ftt.n
                 ftt.validate_beta_bernoulli, ftt.sbc, ftt.adaptive_mcmc_chain_dynamic,
                 interop.gibbs_state_from_numpy, interop.pt_state_from_numpy,
                 serve.FugueService, CompiledModel.build, sessions.MhSession,
-                sessions.ParticleFilter, sessions.smc_run, sessions.log_joint_grid, serve.serve)
+                sessions.ParticleFilter, sessions.smc_run, sessions.log_joint_grid, serve.serve,
+                parallel.sharded_hmc_chain, parallel.sharded_nuts_chain,
+                parallel.sharded_chees_chain, parallel.sharded_smc, parallel.sharded_pt_chain,
+                parallel.sharded_ess_chain, parallel.sharded_gibbs_chain,
+                parallel.sharded_abc_rejection, parallel.sharded_vi, parallel.make_chain_mesh,
+                parallel.make_chain_data_mesh, parallel.make_hybrid_mesh,
+                parallel.make_pod_chain_mesh, parallel.initialize_distributed,
+                parallel.distributed.ensure_process_group)
 
 
 @pytest.fixture(autouse=True)
