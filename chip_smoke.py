@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases build,chees_eight_schools,chees_plate,mh_coin,mh_hierarchical
     python3 chip_smoke.py --phases build,vi_hierarchical,vi_plate,vi_scale,abc_rejection,abc_smc
     python3 chip_smoke.py --phases logistic_scale,laplace_regression,marginal_gmm,gibbs_mixed
+    python3 chip_smoke.py --phases logistic_scale,scale_nuts,scale_chees,scale_densemass,scale_plate
     python3 chip_smoke.py --phases ess_gp,pt_bimodal,validation_conjugate,sbc_normal,mh_transdimensional
     python3 chip_smoke.py --phases build,serve_coin,serve_eight_schools,serve_pf
     python3 chip_smoke.py --phases build,sharded_hmc,sharded_smc,sharded_vi_plate,two_ranks,serve_sharded
@@ -30,11 +31,11 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  dispatch included), each the median of 25
                  CUDA-event-timed repetitions, for kernel and plain.
 3. eight_schools vectorized HMC, 1024 chains, L=32, target_accept 0.9,
-                 200 warmup + 200 samples; gates on split-R-hat, divergence
-                 rate and the posterior mean of mu.
+                 100 warmup + 100 samples (bench: 200 + 200); gates on
+                 split-R-hat, divergence rate and the posterior mean of mu.
 4. gaussian_plate HMC on a 2^20-row Gaussian plate whose likelihood runs
                  through the CUDA kernel (64 chains, L=16, jitter 0.5,
-                 200 + 200); gates on the posterior of (mu, sigma), R-hat and
+                 100 + 100); gates on the posterior of (mu, sigma), R-hat and
                  one kernel call per batched model run.
 5. smc_kernels   the logsumexp and systematic-resampling kernels against
                  their plain versions and float64 references, at SMC's
@@ -54,15 +55,14 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  + 3 logsumexp, stages - 1 resample).
 7. nuts_eight_schools  ftt.nuts_chain at bench_nuts's shape: 1024 chains,
                  NUTSConfig() (max_depth 8, target 0.8, diagonal mass),
-                 float32, 100 warmup + 100 samples (cut from 200 + 200 for
-                 the multi-device phases' time); gates on split-R-hat,
+                 float32, 200 warmup + 200 samples; gates on split-R-hat,
                  divergence rate and the posterior mean of mu (the HMC
                  phase's constant: the same posterior). Reports
                  grad-evals/s, ESS/s, mean tree depth, the lock-step leaves
                  per transition (batch maximum) beside each chain's mean,
                  and host syncs per transition.
 8. nuts_plate    ftt.nuts_chain on the 2^20-row plate (64 chains, uniform
-                 init, 200 + 200, diagonal mass); the HMC plate's gates and
+                 init, 100 + 100, diagonal mass); the HMC plate's gates and
                  one kernel call per batched model run.
 9. smc_coin      ftt.adaptive_smc, float32, 131,072 particles, on the
                  Beta-Bernoulli coin flip (BASELINE config 1), with 3 MH
@@ -150,53 +150,94 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  and C = 256 (counted and traced); ftt.map_estimate by
                  L-BFGS (120 iterations) within 0.05 posterior sds of a
                  float64 Newton point; ftt.hmc_chain from the MAP (L = 16,
-                 300 + 128): max split-R-hat over w[::16] < 1.01,
+                 100 + 100, bench: 300 + 128): max split-R-hat over w[::16] < 1.01,
                  divergences < 1%, mean |w_bar - w_true| / sd in [0.70,
                  0.90], at most 3 GEMMs per model run. Reports grad-evals/s,
                  ESS per gradient, ms, kernels and device us per gradient,
                  the GEMMs' device us against their bound, the idle share of
                  one transition, MAP iterations/s and host syncs.
-22. laplace_regression  examples/map_laplace.py: the ridge MAP by Adam and
+22. scale_nuts   bench_scale_nuts at full width: ftt.nuts_chain
+                 (NUTSConfig(max_depth=6)) on logistic_scale's target from its
+                 MAP (jitter 0.05), 256 chains, 100 + 100 (bench: 300 + 128);
+                 logistic_scale's gates. Grad-evals counted exactly (every
+                 chain's leapfrogs plus one root gradient per transition),
+                 transitions/s, mean tree depth, lock-step leaves per
+                 transition beside each chain's mean, host syncs per
+                 transition and per leaf, ESS per gradient beside
+                 logistic_scale's HMC.
+23. scale_chees  bench_scale_chees at full width: the correlated design
+                 X = bf16(Z Q diag(s) Q^T), s from 0.2 to 3, made on the card
+                 after logistic_scale's is freed; the MAP by L-BFGS within
+                 0.05 sds of a float64 Newton point; ftt.chees_chain
+                 (criterion "snaper", 300 + 256) and fixed-L16 ftt.hmc_chain
+                 (100 + 100: ESS per gradient is a rate) on the same target,
+                 256 chains each, from the MAP; ChEES's R-hat < 1.01,
+                 divergences < 1%, error in [0.70, 0.90] and ESS per gradient
+                 at least HMC's. Reports mean L, T, tau reads per transition
+                 and both drives' grad-evals/s.
+24. scale_densemass  bench_scale_densemass at full width: d = 256, N = 8,192,
+                 w ~ MVN(0, Sigma_ij = exp(-|i-j|/32)), 128 chains,
+                 HMCConfig(n_leapfrog=32, mass="dense", target_accept=0.85,
+                 jitter=0.5) (bench: jitter 0.2), 200 + 200 (bench: 600 +
+                 1024) from the MAP (within 0.05 sds of the closed form)
+                 with jitter 0.1 (bench: the prior's init); every
+                 coordinate's mean within 5 MC-SE and every marginal sd
+                 ratio within 5 standard errors of the float64 closed form
+                 (computed on the card), max split-R-hat < 1.01, no host sync
+                 in a batched gradient. Reports grad-evals/s, ms per
+                 transition, the device time of the dense algebra (one
+                 cholesky_ex and triangular solve per momentum draw, L + 2
+                 products Sigma p), the adapted Sigma's condition number.
+25. scale_plate  bench_scale_plate at full width: mu, theta (128) and one
+                 vectorized observe of 128 x 8,192 rows, 64 chains, L = 16,
+                 jitter 0.5, 200 + 200 (bench: 400 + 256), from bench.py's
+                 conjugate warm start; mu and every
+                 group within 5 MC-SE of the exact posterior, max split-R-hat
+                 over all 128 groups < 1.01. Reports obs-grad rows/s, ms,
+                 kernels and device us per batched gradient, the idle share
+                 and torch.cuda.max_memory_allocated.
+26. laplace_regression  examples/map_laplace.py: the ridge MAP by Adam and
                  L-BFGS within 1e-4 of the closed form, Laplace sds within
                  1e-4 of exact; the quadratic model's Laplace evidence beats
                  the linear one's, whose evidence is exact to 1e-3.
-23. marginal_gmm the enumerated mixture of tests/test_marginalize.py on 12
+27. marginal_gmm the enumerated mixture of tests/test_marginalize.py on 12
                  points (4,096 states) through ftt.marginalize and
                  ftt.hmc_chain, 1024 chains, L = 16, 60 + 60 (cut from
                  200 + 200): each labelling's chains' means within 5 MC-SE
                  of a 2-D quadrature of that half-plane; infer_discrete's
                  co-assignments > 0.95 within and < 0.05 across clusters.
-24. gibbs_mixed  ftt.gibbs_chain on the mixed model, 1024 chains, 100 + 200
+28. gibbs_mixed  ftt.gibbs_chain on the mixed model, 1024 chains, 100 + 200
                  (cut from 200 + 300): P(heads | y) and E[mu | y] within 5 MC-SE of the closed form.
-25. ess_gp       ftt.ess_chain on the GP regression and classification of
-                 examples/gaussian_process.py, 1024 chains, 200 + 400 (cut
+29. ess_gp       ftt.ess_chain on the GP regression and classification of
+                 examples/gaussian_process.py, 1024 chains, 150 + 300 (cut
                  from 300 + 1000): the regression's mean and covariance
                  within 5 SE of the closed form, the classification's
                  latent signs; likelihood evaluations and host reads per
                  transition.
-26. pt_bimodal   ftt.pt_chain on examples/parallel_tempering.py's target,
-                 8 rungs x 1024 chains, L = 12, 200 + 400: P(x > 0) and E[x]
+30. pt_bimodal   ftt.pt_chain on examples/parallel_tempering.py's target,
+                 8 rungs x 1024 chains, L = 12, 150 + 300: P(x > 0) and E[x]
                  within 5 MC-SE of 0.7 and 1.6; per-pair swap rates.
-27. loo_eight_schools  ftt.pointwise_log_likelihood of the eight_schools
+31. loo_eight_schools  ftt.pointwise_log_likelihood of the eight_schools
                  phase's draws (its own 256-chain run when that phase did
                  not run) within 1e-5 of log N(y_j | theta_j, sigma_j),
                  ftt.waic and ftt.psis_loo the same from the card's matrix
                  and its CPU copy; k-hat.
-28. validation_conjugate  ftt.validate_conjugate_normal and
-                 ftt.validate_beta_bernoulli through the hmc (100 + 100),
+32. validation_conjugate  ftt.validate_conjugate_normal and
+                 ftt.validate_beta_bernoulli through the hmc (60 + 60),
                  mh and smc adapters at 256 chains: each mean and variance
                  within 5 MC-SE, the harness's own 2-SE verdict reported.
-29. sbc_normal   ftt.sbc at tests/test_sbc.py's settings: every p-value
-                 > 1e-4, and the wrong-prior control rejected.
-30. mh_transdimensional  ftt.adaptive_mcmc_chain_dynamic on
+33. sbc_normal   ftt.sbc at tests/test_sbc.py's settings: every p-value
+                 > 1e-4, and the wrong-prior control (50 warmup, thin 1)
+                 rejected.
+34. mh_transdimensional  ftt.adaptive_mcmc_chain_dynamic on
                  examples/transdimensional.py, 1000 + 6000, the model on the
                  card: P(b present | y) within 5 MC-SE (the indicator's
                  ESS) of its analytic value; births, deaths, transitions/s.
 
-Phases 31-33 each start ``serve(port=0, service=FugueService(),
+Phases 35-37 each start ``serve(port=0, service=FugueService(),
 block=False)`` in this process and POST JSON-RPC requests over urllib:
 
-31. serve_coin   the coin flip (BASELINE config 1) compiled from DSL source,
+35. serve_coin   the coin flip (BASELINE config 1) compiled from DSL source,
                  one observe per flip: an MH session at 4,096 chains, 300 +
                  300 transitions, mh.history's mean within 5 MC-SE of 20/31,
                  host reads per mh.step request the same for n = 1, 10, 100;
@@ -209,16 +250,16 @@ block=False)`` in this process and POST JSON-RPC requests over urllib:
                  recorded; vi.run with both guides, 600 iterations
                  (tests/test_serve.py's, and its gates); vi.run's two
                  -32602 repairs; hmc.sharded on an unknown model -32602.
-32. serve_eight_schools  non-centred eight-schools in the DSL (18 sites,
+36. serve_eight_schools  non-centred eight-schools in the DSL (18 sites,
                  bench.py's priors): chees.new at 1,024 chains, 200 warmup,
-                 then 200 chees.step requests; mean mu within 5 MC-SE of the
+                 then 100 chees.step requests (from 200); mean mu within 5 MC-SE of the
                  eight_schools constant; grad-evals/s through the service,
                  kernels and device us per batched gradient of the DSL model
                  and of the hand-written one, ms per request; one grid
                  request of 512 x 512 log joints over (mu, tau), theta_raw
                  fixed, within 3e-5 (relative, float32) of a float64 numpy
                  closed form.
-33. serve_pf     pf.new at 2^20 particles (q = 0.3, r = 0.5), 200 pf.observe
+37. serve_pf     pf.new at 2^20 particles (q = 0.3, r = 0.5), 200 pf.observe
                  requests on a random walk made with numpy: every filtered
                  mean within 5 sqrt(P_t (1/ESS_t + 1/N)) of the exact Kalman
                  filter's; 3 logsumexp + 1 resample launches and one host
@@ -226,13 +267,13 @@ block=False)`` in this process and POST JSON-RPC requests over urllib:
                  utils.profiling.device_trace, whose trace names both
                  kernels.
 
-Phases 34-38 drive fugue_tpu_torch.parallel, the multi-device layer. The
-card is one GPU: phases 34-36 and 38 run one NCCL rank (the backend and
-code path of one rank per GPU), phase 37 two gloo ranks in two processes
+Phases 38-42 drive fugue_tpu_torch.parallel, the multi-device layer. The
+card is one GPU: phases 38-40 and 42 run one NCCL rank (the backend and
+code path of one rank per GPU), phase 41 two gloo ranks in two processes
 on the card (NCCL refuses two ranks on one device):
 
-34. sharded_hmc  parallel.sharded_hmc_chain on eight-schools (1024 chains,
-                 L=32, 200 + 200) and the plate (64 x 2^20, L=16, 100 + 100,
+38. sharded_hmc  parallel.sharded_hmc_chain on eight-schools (1024 chains,
+                 L=32, 100 + 100) and the plate (64 x 2^20, L=16, 100 + 100,
                  through the value-and-grad kernel, held against its plain
                  version on one of the run's own calls), each with its
                  single-device phase's gates and ms per transition beside
@@ -241,27 +282,28 @@ on the card (NCCL refuses two ranks on one device):
                  no host sync added to 10 warmup transitions of the drive
                  against the single-device drive (_host_syncs); the NCCL
                  drive's ms per warmup transition over the single-device
-                 drive's, both warm, timed in turns from the same start.
-35. sharded_smc  parallel's adaptive_smc(mesh=) on the hierarchical model at
+                 drive's, both warm, timed in turns from the same start (8
+                 warmup transitions per drive, 3 rounds).
+39. sharded_smc  parallel's adaptive_smc(mesh=) on the hierarchical model at
                  131,072 particles, 3 MH moves: the smc phase's gates and
                  launch contracts, and both kernels against their plain
                  versions on the gathered (N,) log-weights of the run's last
                  resample.
-36. sharded_vi_plate  parallel.sharded_vi in data mode (the plate likelihood
+40. sharded_vi_plate  parallel.sharded_vi in data mode (the plate likelihood
                  a sharded factor), the vi_plate configuration and gates;
                  one plate-kernel call and one all-reduce per iteration, one
                  host sync per segment; the kernel held against its plain
                  version on one of the run's own calls.
-37. two_ranks    two processes (this script with --two-ranks-worker), one
+41. two_ranks    two processes (this script with --two-ranks-worker), one
                  gloo rank each: HMC on eight-schools at 2 x 512 chains (L=32,
-                 100 + 100), SMC at 131,072 particles through the ring, VI's
+                 60 + 60), SMC at 131,072 particles through the ring, VI's
                  data mode at 2 x 2^19 rows; results bitwise the same on both
                  ranks, the eight_schools, smc and vi_plate gates, the launch
                  contracts per rank, gloo's host stagings counted; the median
                  ms of one ring gather of the SMC run's particles; the plate
                  kernel held against its plain version on one VI call of
                  each rank (2^19 rows).
-38. serve_sharded  hmc.sharded over HTTP on the DSL coin flip (256 chains,
+42. serve_sharded  hmc.sharded over HTTP on the DSL coin flip (256 chains,
                  L=32, 25 + 25): mean within 5 sd/sqrt(chains) of 20/31, sd within
                  10% of the exact, split-R-hat < 1.05; vi.run's host syncs
                  exactly one more than the same optimization's called
@@ -296,7 +338,8 @@ PHASES = ("build", "kernel", "eight_schools", "gaussian_plate", "smc_kernels", "
           "nuts_eight_schools", "nuts_plate", "smc_coin", "smc_mixture", "smc_discrete",
           "chees_eight_schools", "chees_plate", "mh_coin", "mh_hierarchical",
           "vi_hierarchical", "vi_plate", "vi_scale", "abc_rejection", "abc_smc",
-          "logistic_scale", "laplace_regression", "marginal_gmm", "gibbs_mixed", "ess_gp",
+          "logistic_scale", "scale_nuts", "scale_chees", "scale_densemass", "scale_plate",
+          "laplace_regression", "marginal_gmm", "gibbs_mixed", "ess_gp",
           "pt_bimodal", "loo_eight_schools", "validation_conjugate", "sbc_normal",
           "mh_transdimensional", "serve_coin", "serve_eight_schools", "serve_pf",
           "sharded_hmc", "sharded_smc", "sharded_vi_plate", "two_ranks", "serve_sharded")
@@ -757,7 +800,7 @@ def _eight_schools_posterior(res, n_chains, n_samples, what):
 def phase_eight_schools():
     import fugue_tpu_torch as ftt
 
-    n_chains, n_warmup, n_samples, L = 1024, 200, 200, 32
+    n_chains, n_warmup, n_samples, L = 1024, 100, 100, 32  # bench_hmc: 200 + 200
     staged = ftt.stage(eight_schools_model("cuda"), device="cuda")
     cfg = ftt.HMCConfig(n_leapfrog=L, target_accept=0.9)
     torch.cuda.synchronize()
@@ -866,7 +909,7 @@ def _plate_run(run):
 def phase_gaussian_plate():
     import fugue_tpu_torch as ftt
 
-    n_chains, n_warmup, n_samples, L = MAIN_SHAPE[0], 200, 200, 16
+    n_chains, n_warmup, n_samples, L = MAIN_SHAPE[0], 100, 100, 16  # cut from 200 + 200
     n = MAIN_SHAPE[1]
     cfg = ftt.HMCConfig(n_leapfrog=L, jitter=0.5)
     y, res, wall, launches, model_runs = _plate_run(
@@ -1476,7 +1519,7 @@ def phase_nuts_eight_schools():
 def phase_nuts_plate():
     import fugue_tpu_torch as ftt
 
-    n_chains, n_warmup, n_samples = MAIN_SHAPE[0], 200, 200
+    n_chains, n_warmup, n_samples = MAIN_SHAPE[0], 100, 100  # cut from 200 + 200
     n = MAIN_SHAPE[1]
     y, res, wall, launches, model_runs = _plate_run(
         lambda staged, y: ftt.nuts_chain(3, n_samples=n_samples, n_warmup=n_warmup,
@@ -2102,19 +2145,83 @@ def newton_logistic(x, y, iters=12):
     return w, sd, it + 1
 
 
+def logistic_map(staged, x, y, row, what):
+    """The float64 Newton point and posterior sds of the logistic model on
+    (x, y), and ftt.map_estimate by L-BFGS (120 iterations) gated within
+    0.05 posterior sds of it; their costs go into ``row``. (sds, MAP)."""
+    import fugue_tpu_torch as ftt
+
+    t0 = time.perf_counter()
+    w_newton, sd, steps = newton_logistic(x, y)
+    row.update(newton_s=time.perf_counter() - t0, newton_steps=steps)
+    cfg = ftt.MAPConfig(n_iterations=120, optimizer="lbfgs", n_restarts=1)
+    m, map_wall, map_syncs = _timed_syncs(lambda: ftt.map_estimate(0, staged=staged,
+                                                                   config=cfg))
+    map_z = ((m.z.double() - w_newton) / sd).abs().max().item()
+    row.update(map_wall_s=map_wall, map_iterations_per_s=cfg.n_iterations / map_wall,
+               map_host_syncs=map_syncs, map_host_syncs_counted=m.host_syncs,
+               map_grad_norm=m.grad_norm, map_max_sd_from_newton=map_z)
+    check(map_z < 0.05, f"{what}: MAP {map_z} posterior sds from the Newton point")
+    return sd, m
+
+
+def logistic_stats(ws, divergences, w_true, sd):
+    """bench.py's _logistic_stats on (C, S, D) draws of w: the max
+    split-R-hat and min multichain ESS over w[::16], the mean |w_bar -
+    w_true| in posterior sds (``sd``, the Newton point's), the divergence
+    rate. ESS is capped at C * S draws (both packages cap it)."""
+    from fugue_tpu_torch.inference.mcmc_utils import ess_multichain, split_r_hat
+
+    ws = ws.double()
+    c, s = ws.shape[:2]
+    sub = ws[:, :, ::16].permute(2, 0, 1)  # (D / 16, C, S)
+    ess = ess_multichain(sub)
+    return {"split_rhat_max": split_r_hat(sub).max().item(),
+            "divergence_rate": divergences.float().mean().item(),
+            "mean_abs_err_in_sd": ((ws.mean(dim=(0, 1)) - w_true.double()).abs()
+                                   / sd).mean().item(),
+            "ess_min": ess.min().item(), "ess_median": ess.median().item(),
+            "ess_min_at_cap": bool(ess.min().item() >= c * s)}
+
+
+def check_logistic_stats(stats, what):
+    """The logistic rows' gates: max split-R-hat < 1.01, divergences < 1%,
+    mean coefficient error in [0.70, 0.90] posterior sds (E|Z| = 0.798 when
+    the truth is a posterior draw)."""
+    rhat, div, err = (stats[k] for k in ("split_rhat_max", "divergence_rate",
+                                         "mean_abs_err_in_sd"))
+    check(rhat < 1.01, f"{what}: max split-R-hat over w[::16] {rhat} >= 1.01")
+    check(div < 0.01, f"{what}: divergence rate {div} >= 1%")
+    check(0.70 <= err <= 0.90, f"{what}: mean |w_bar - w_true| / sd {err} "
+          "outside [0.70, 0.90] (E|Z| = 0.798)")
+
+
 def _gemm_events(events):
     return [e for e in events if any(k in e.name.lower() for k in GEMM_KERNEL)]
+
+
+def _one_transition(one_call, reps=3):
+    """One ``one_call()`` (a one-transition drive from a run's end) timed and
+    traced: (its row, the traced call's result). The row has the median of
+    ``reps`` CUDA-event timings, the traced call's kernels and device time,
+    and the idle share, device time over that wall."""
+    one_call()
+    t_ms = median_ms(one_call, reps=reps)
+    out = []
+    _, events = traced_kernels(lambda: out.append(one_call()))
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    return {"transition_ms": t_ms, "transition_kernels": len(events),
+            "transition_device_ms": busy_ms, "idle_share": 1.0 - busy_ms / t_ms}, out[-1]
 
 
 def phase_logistic_scale():
     """bench_scale_logistic at full width: the split-bf16 products, a MAP
     warm start by L-BFGS and 256 HMC chains, D = 1024, N = 100,000."""
     import fugue_tpu_torch as ftt
-    from fugue_tpu_torch.inference.mcmc_utils import ess_multichain, split_r_hat
     from fugue_tpu_torch.ops import linalg
 
     d, n, c = LOGISTIC_SHAPE
-    L, n_warmup, n_samples = 16, 300, 128
+    L, n_warmup, n_samples = 16, 100, 100  # bench.py's 300 + 128, from the MAP
     x, y, w_true = logistic_data(d, n)
     row = {"phase": "logistic_scale", "card": card_line(), "D": d, "N": n, "chains": c}
 
@@ -2165,19 +2272,7 @@ def phase_logistic_scale():
     row["gemm_bound_us"] = 1e6 * max(t_ops, t_bytes)
     row["gemm_bound_by"] = "operations" if t_ops > t_bytes else "bytes"
 
-    # the float64 Newton point and posterior sds on the same data
-    t0 = time.perf_counter()
-    w_newton, sd, steps = newton_logistic(x, y)
-    row.update(newton_s=time.perf_counter() - t0, newton_steps=steps)
-
-    cfg = ftt.MAPConfig(n_iterations=120, optimizer="lbfgs", n_restarts=1)
-    m, map_wall, map_syncs = _timed_syncs(lambda: ftt.map_estimate(0, staged=staged,
-                                                                   config=cfg))
-    map_z = ((m.z.double() - w_newton) / sd).abs().max().item()
-    row.update(map_wall_s=map_wall, map_iterations_per_s=cfg.n_iterations / map_wall,
-               map_host_syncs=map_syncs, map_host_syncs_counted=m.host_syncs,
-               map_grad_norm=m.grad_norm, map_max_sd_from_newton=map_z)
-    check(map_z < 0.05, f"logistic_scale: MAP {map_z} posterior sds from the Newton point")
+    sd, m = logistic_map(staged, x, y, row, "logistic_scale")
 
     hcfg = ftt.HMCConfig(n_leapfrog=L, target_accept=0.8)
     runs[0] = 0
@@ -2189,39 +2284,432 @@ def phase_logistic_scale():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     gemms, model_runs = linalg.GEMMS["cuda"] - before, runs[0]
-    ws = res.samples["w"].double()  # (C, S, D)
-    sub = ws[:, :, ::16].permute(2, 0, 1)  # (64, C, S)
-    rhat = split_r_hat(sub).max().item()
-    ess = ess_multichain(sub)
-    div = res.divergences.float().mean().item()
-    err = ((ws.mean(dim=(0, 1)) - w_true.double()).abs() / sd).mean().item()
+    stats = logistic_stats(res.samples["w"], res.divergences, w_true, sd)
     grad_evals = c * (n_warmup + n_samples) * (L + 1)
-    # one sampling transition's idle share: device time over its wall
-    q_f = res.final_positions
-
-    def one_transition():
-        return ftt.hmc_chain(3, staged=staged, n_samples=1, n_warmup=0,
-                             config=ftt.HMCConfig(n_leapfrog=L, step_size=res.step_size),
-                             n_chains=c, init_position=q_f)
-
-    one_transition()
-    t_ms = median_ms(one_transition, reps=3)
-    _, tev = traced_kernels(one_transition)
-    busy_ms = sum(e.time_range.elapsed_us() for e in tev) / 1e3
+    one, _ = _one_transition(lambda: ftt.hmc_chain(3, staged=staged, n_samples=1, config=hcfg,
+                                                   n_chains=c, resume=res))
+    # ESS per gradient of each chain, as bench.py's scale rows count it
+    ess_per_grad = stats["ess_min"] / (grad_evals / c)
     row.update(warmup=n_warmup, samples=n_samples, n_leapfrog=L, hmc_wall_s=wall,
-               grad_evals_per_s=grad_evals / wall,
-               ess_min=ess.min().item(), ess_median=ess.median().item(),
-               ess_per_grad=ess.min().item() / grad_evals,
-               split_rhat_max=rhat, divergence_rate=div, step_size=res.step_size,
-               mean_abs_err_in_sd=err, gemm_calls=gemms, model_runs=model_runs,
-               transition_ms=t_ms, transition_device_ms=busy_ms,
-               idle_share=1.0 - busy_ms / t_ms, dtype=str(res.samples["w"].dtype))
+               grad_evals_per_s=grad_evals / wall, **stats, ess_per_grad=ess_per_grad,
+               step_size=res.step_size, gemm_calls=gemms, model_runs=model_runs, **one,
+               dtype=str(res.samples["w"].dtype))
     emit(row)
     check(gemms <= 3 * model_runs, f"logistic_scale: {gemms} GEMMs in {model_runs} model runs")
-    check(rhat < 1.01, f"logistic_scale: max split-R-hat over w[::16] {rhat} >= 1.01")
-    check(div < 0.01, f"logistic_scale: divergence rate {div} >= 1%")
-    check(0.70 <= err <= 0.90, f"logistic_scale: mean |w_bar - w_true| / sd {err} "
-          "outside [0.70, 0.90] (E|Z| = 0.798)")
+    check_logistic_stats(stats, "logistic_scale")
+    # scale_nuts samples the same target from the same warm start
+    return {"x": x, "y": y, "w_true": w_true, "staged": staged, "sd": sd, "map_z": m.z,
+            "hmc_ess_per_grad": ess_per_grad}
+
+
+# ---------------------------------------------------------------------------
+# bench.py's scale rows: NUTS and ChEES-SNAPER on the d = 1024 logistic
+# targets, dense-mass HMC at d = 256, the 128-group plate. Each runs at
+# bench.py's width; depth (warmup, samples) is cut to fit the smoke's time.
+# ---------------------------------------------------------------------------
+
+SCALE_DEPTH = {  # (warmup, samples); bench.py's in the comment
+    "scale_nuts": (100, 100),  # 300 + 128
+    "scale_chees": (300, 256),  # 300 + 256
+    # the fixed-L16 HMC beside it: ESS per gradient is a rate, so a shorter
+    # drive with a larger sampling share (1/2 against 256/556) is fair to HMC
+    "scale_chees_hmc": (100, 100),  # 300 + 256
+    "scale_densemass": (200, 200),  # 600 + 1024, from the MAP (bench: the prior's init)
+    "scale_plate": (200, 200),  # 400 + 256
+}
+DENSEMASS_SHAPE = (256, 8192, 128)  # bench_scale_densemass's d, N and chains
+DENSEMASS_JITTER = 0.1  # the warm start's spread: the posterior sds are 0.13-0.15
+GROUP_PLATE_SHAPE = (128, 8192, 64)  # bench_scale_plate's groups, rows and chains
+
+
+def correlated_logistic_data(d, n, seed=107, device="cuda"):
+    """bench_scale_chees's correlated design, made on ``device``: Z =
+    N(0, 1)/sqrt(D) in bf16, A = Q diag(s) Q^T with Q from the QR of a D x D
+    normal matrix and s = exp(linspace(log 0.2, log 3, D)), X = Z A as one
+    bf16 product with float32 accumulation rounded to bf16; w_true ~ N(0, 1)
+    and y ~ Bernoulli(sigmoid(X w_true)), the logits from bf16 w_true."""
+    from fugue_tpu_torch.ops.linalg import matmul_bf16
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    z = (torch.randn((n, d), generator=g, device=device) / math.sqrt(d)).to(torch.bfloat16)
+    q, _ = torch.linalg.qr(torch.randn((d, d), generator=g, device=device))
+    s = torch.exp(torch.linspace(math.log(0.2), math.log(3.0), d, device=device))
+    a = (q * s) @ q.T
+    x = matmul_bf16(z, a.to(torch.bfloat16)).to(torch.bfloat16)
+    del z
+    w_true = torch.randn(d, generator=g, device=device)
+    logits = matmul_bf16(x, w_true.to(torch.bfloat16))
+    y = torch.rand(n, generator=g, device=device) < torch.sigmoid(logits)
+    return x, y, w_true
+
+
+def densemass_data(d, n, seed=98, device="cuda", dtype=torch.float32):
+    """bench_scale_densemass's target: Sigma_ij = exp(-|i - j|/32) with its
+    Cholesky factor (numpy float64, then ``dtype``), X ~ N(0, 1)/sqrt(d),
+    w_true = chol(Sigma) N(0, I), y = X w_true + N(0, 1). (x, y, w_true,
+    scale_tril)."""
+    i = np.arange(d)
+    sigma = np.exp(-np.abs(i[:, None] - i[None, :]) / 32.0)
+    tril = torch.as_tensor(np.linalg.cholesky(sigma), dtype=dtype, device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((n, d), generator=g, device=device, dtype=dtype) / math.sqrt(d)
+    w_true = tril @ torch.randn(d, generator=g, device=device, dtype=dtype)
+    y = x @ w_true + torch.randn(n, generator=g, device=device, dtype=dtype)
+    return x, y, w_true, tril
+
+
+def densemass_model(x, y, tril):
+    """w ~ MultivariateNormal(0, scale_tril), y ~ Normal(X w, 1)."""
+    import fugue_tpu_torch as ftt
+
+    zeros = torch.zeros(x.shape[1], dtype=x.dtype, device=x.device)
+
+    def dense():
+        w = ftt.sample("w", ftt.MultivariateNormal(zeros, scale_tril=tril))
+        ftt.observe("y", ftt.Normal(x @ w, 1.0), y)
+
+    return dense
+
+
+def densemass_posterior(x, y, tril):
+    """The closed-form posterior in float64 on x's device: precision
+    Lambda = Sigma^-1 + X^T X, covariance Lambda^-1, mean Lambda^-1 X^T y.
+    (mean, covariance)."""
+    x64, y64 = x.double(), y.double()
+    lam = torch.cholesky_inverse(tril.double()) + x64.T @ x64
+    chol = torch.linalg.cholesky(lam)
+    return torch.cholesky_solve((x64.T @ y64)[:, None], chol)[:, 0], torch.cholesky_inverse(chol)
+
+
+def group_plate_data(groups, rows, seed=97, device="cuda", dtype=torch.float32):
+    """bench_scale_plate's data: theta_true ~ N(0, 1) per group, Y =
+    theta_true[:, None] + N(0, 1), shape (groups, rows)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    theta = torch.randn(groups, generator=g, device=device, dtype=dtype)
+    return theta[:, None] + torch.randn((groups, rows), generator=g, device=device, dtype=dtype)
+
+
+def group_plate_model(y):
+    """mu ~ N(0, 1), theta ~ N(mu, 1) per group, one vectorized observe of
+    Y ~ N(theta[:, None], 1)."""
+    import fugue_tpu_torch as ftt
+
+    def group_plate():
+        mu = ftt.sample("mu", ftt.Normal(0.0, 1.0))
+        theta = ftt.sample("theta", ftt.Normal(mu, 1.0), sample_shape=(y.shape[0],))
+        ftt.observe("Y", ftt.Normal(theta[:, None], 1.0), y)
+
+    return group_plate
+
+
+def group_plate_posterior(y):
+    """The exact posterior of the group plate in float64: with ybar_g | mu
+    ~ N(mu, (n + 1)/n), mu | Y ~ N(m, v), v = 1/(1 + G n/(n + 1)), m =
+    v n/(n + 1) sum_g ybar_g, and theta_g | Y has mean (n ybar_g + m)/(n + 1)
+    and variance 1/(n + 1) + v/(n + 1)^2. (mean, sd) of [mu, theta_1..G]."""
+    groups, n = y.shape
+    ybar = y.double().mean(dim=1)
+    v = 1.0 / (1.0 + groups * n / (n + 1.0))
+    m = v * n / (n + 1.0) * ybar.sum()
+    mean = torch.cat([m[None], (n * ybar + m) / (n + 1.0)])
+    var = torch.cat([torch.full((1,), v, dtype=torch.float64, device=y.device),
+                     torch.full((groups,), 1.0 / (n + 1.0) + v / (n + 1.0) ** 2,
+                                dtype=torch.float64, device=y.device)])
+    return mean, var.sqrt()
+
+
+def closed_form_stats(draws, mean, sd):
+    """(C, S, k) draws against a closed-form posterior's (k,) means and sds,
+    coordinate by coordinate: the mean's offset in Monte-Carlo standard
+    errors (sd / sqrt(ESS), the coordinate's multichain ESS, capped at C * S
+    by design), the draws' sd over the closed form's and that ratio's offset
+    from 1 in its standard errors (1 / sqrt(2 ESS) from the ESS of the
+    squared deviations), and split-R-hat. Tensors of shape (k,)."""
+    from fugue_tpu_torch.inference.mcmc_utils import ess_multichain, split_r_hat
+
+    x = draws.double().permute(2, 0, 1)  # (k, C, S)
+    ess = ess_multichain(x)
+    dev2 = (x - mean[:, None, None]) ** 2
+    ratio = dev2.mean(dim=(1, 2)).sqrt() / sd
+    return {"mean_z": (x.mean(dim=(1, 2)) - mean) / (sd / ess.sqrt()), "ess": ess,
+            "sd_ratio": ratio, "sd_ratio_z": (ratio - 1.0) * (2.0 * ess_multichain(dev2)).sqrt(),
+            "split_rhat": split_r_hat(x)}
+
+
+def densemass_stats(draws, divergences, mean, cov):
+    """Dense-mass HMC's (C, S, d) draws against the closed form
+    (``closed_form_stats``), reduced to the row's worst cases."""
+    st = closed_form_stats(draws, mean, torch.diagonal(cov).sqrt())
+    return {"max_abs_mean_z": st["mean_z"].abs().max().item(),
+            "sd_ratio_min": st["sd_ratio"].min().item(),
+            "sd_ratio_max": st["sd_ratio"].max().item(),
+            "max_abs_sd_ratio_z": st["sd_ratio_z"].abs().max().item(),
+            "ess_min": st["ess"].min().item(), "split_rhat_max": st["split_rhat"].max().item(),
+            "divergence_rate": divergences.float().mean().item()}
+
+
+def check_densemass(row, what):
+    """Every coordinate's mean within 5 MC-SE of the closed form, every
+    marginal sd ratio within 5 of its standard errors, max split-R-hat <
+    1.01."""
+    check(row["max_abs_mean_z"] < 5.0, f"{what}: a coordinate's mean is "
+          f"{row['max_abs_mean_z']:.2f} MC-SE from the closed form")
+    check(row["max_abs_sd_ratio_z"] < 5.0, f"{what}: a marginal sd ratio is "
+          f"{row['max_abs_sd_ratio_z']:.2f} standard errors from 1 (range "
+          f"{row['sd_ratio_min']:.4f}-{row['sd_ratio_max']:.4f})")
+    check(row["split_rhat_max"] < 1.01, f"{what}: max split-R-hat {row['split_rhat_max']} >= 1.01")
+
+
+def group_plate_stats(mu, theta, divergences, mean, sd):
+    """The group plate's draws of mu (C, S) and theta (C, S, G) against the
+    exact posterior (``closed_form_stats``), reduced to the row's worst
+    cases."""
+    st = closed_form_stats(torch.cat([mu[..., None], theta], dim=-1), mean, sd)
+    z, rhat = st["mean_z"], st["split_rhat"]
+    return {"mu_z": z[0].item(), "max_abs_group_z": z[1:].abs().max().item(),
+            "max_split_rhat_groups": rhat[1:].max().item(), "split_rhat_mu": rhat[0].item(),
+            "ess_min": st["ess"].min().item(), "sd_ratio_min": st["sd_ratio"].min().item(),
+            "sd_ratio_max": st["sd_ratio"].max().item(),
+            "divergence_rate": divergences.float().mean().item()}
+
+
+def check_group_plate(row, what):
+    """mu and every group's theta within 5 MC-SE of the exact posterior, max
+    split-R-hat over all groups < 1.01."""
+    check(abs(row["mu_z"]) < 5.0, f"{what}: mu's mean is {row['mu_z']:.2f} MC-SE from exact")
+    check(row["max_abs_group_z"] < 5.0, f"{what}: a group's theta mean is "
+          f"{row['max_abs_group_z']:.2f} MC-SE from exact")
+    check(row["max_split_rhat_groups"] < 1.01,
+          f"{what}: max split-R-hat over the groups {row['max_split_rhat_groups']} >= 1.01")
+
+
+def phase_scale_nuts(logistic=None):
+    """bench_scale_nuts: NUTS (max depth 6) on logistic_scale's d = 1024
+    target from its MAP, 256 chains; ``logistic`` is that phase's handover
+    (target, Newton sds, MAP, HMC ESS per gradient), made here when it did
+    not run."""
+    import fugue_tpu_torch as ftt
+
+    d, n, c = LOGISTIC_SHAPE
+    n_warmup, n_samples = SCALE_DEPTH["scale_nuts"]
+    row = {"phase": "scale_nuts", "card": card_line(), "D": d, "N": n, "chains": c,
+           "warmup": n_warmup, "samples": n_samples, "max_depth": 6}
+    if logistic is None:
+        x, y, w_true = logistic_data(d, n)
+        staged = ftt.stage(logistic_model(x, y), device="cuda")
+        sd, m = logistic_map(staged, x, y, row, "scale_nuts")
+        logistic = {"staged": staged, "w_true": w_true, "sd": sd, "map_z": m.z,
+                    "hmc_ess_per_grad": None}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ftt.nuts_chain(41, staged=logistic["staged"], n_samples=n_samples,
+                         n_warmup=n_warmup, config=ftt.NUTSConfig(max_depth=6), n_chains=c,
+                         init_position=logistic["map_z"], init_jitter=0.05)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = logistic_stats(res.samples["w"], res.divergences, logistic["w_true"], logistic["sd"])
+    n_transitions = n_warmup + n_samples
+    # exact: every chain's own leapfrogs plus one root gradient per transition
+    grad_evals = res.n_leapfrogs + c * n_transitions
+    one, one_res = _one_transition(lambda: ftt.nuts_chain(
+        3, staged=logistic["staged"], n_samples=1, config=ftt.NUTSConfig(max_depth=6),
+        n_chains=c, resume=res))
+    # per lock-step leaf of that transition (its root gradient included)
+    per_leaf = one_res.lockstep_leaves + 1
+    row.update(one_transition={**one, "lockstep_leaves": one_res.lockstep_leaves,
+                               "kernels_per_leaf": one["transition_kernels"] / per_leaf,
+                               "device_us_per_leaf": 1e3 * one["transition_device_ms"] / per_leaf})
+    row.update(wall_s=wall, grad_evals_per_s=grad_evals / wall,
+               transitions_per_s=c * n_transitions / wall, step_size=res.step_size,
+               **_nuts_tree_stats(res, c, n_transitions, wall),
+               host_syncs_per_lockstep_leaf=res.host_syncs / res.lockstep_leaves, **stats,
+               ess_per_grad=stats["ess_min"] / (grad_evals / c),
+               hmc_ess_per_grad=logistic["hmc_ess_per_grad"])
+    emit(row)
+    check_logistic_stats(stats, "scale_nuts")
+
+
+def phase_scale_chees():
+    """bench_scale_chees: ChEES (SNAPER) and fixed-L16 HMC on the correlated
+    d = 1024 logistic target from its MAP, 256 chains each; ChEES's ESS per
+    gradient at least HMC's."""
+    import fugue_tpu_torch as ftt
+
+    torch.cuda.empty_cache()  # logistic_scale's design and intermediates are gone
+    d, n, c = LOGISTIC_SHAPE
+    L = 16
+    n_warmup, n_samples = SCALE_DEPTH["scale_chees"]
+    n_transitions = n_warmup + n_samples
+    row = {"phase": "scale_chees", "card": card_line(), "D": d, "N": n, "chains": c,
+           "warmup": n_warmup, "samples": n_samples, "criterion": "snaper"}
+    t0 = time.perf_counter()
+    x, y, w_true = correlated_logistic_data(d, n)
+    torch.cuda.synchronize()
+    row["data_s"] = time.perf_counter() - t0
+    staged = ftt.stage(logistic_model(x, y), device="cuda")
+    sd, m = logistic_map(staged, x, y, row, "scale_chees")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ftt.chees_chain(47, staged=staged, n_samples=n_samples, n_warmup=n_warmup,
+                          config=ftt.ChEESConfig(criterion="snaper"), n_chains=c,
+                          init_position=m.z, init_jitter=0.05)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = logistic_stats(res.samples["w"], res.divergences, w_true, sd)
+    ess_per_grad = stats["ess_min"] / (res.n_leapfrogs / c + n_transitions)
+    one, one_res = _one_transition(lambda: ftt.chees_chain(
+        3, staged=staged, n_samples=1, config=ftt.ChEESConfig(criterion="snaper"), n_chains=c,
+        resume=res))
+    per_grad = one_res.n_leapfrogs // c + 1  # its L leapfrogs and the start's gradient
+    row.update(wall_s=wall, **_chees_stats(res, c, n_transitions, wall), **stats,
+               ess_per_grad=ess_per_grad,
+               one_transition={**one, "batched_gradients": per_grad,
+                               "kernels_per_gradient": one["transition_kernels"] / per_grad,
+                               "device_us_per_gradient": 1e3 * one["transition_device_ms"]
+                               / per_grad})
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h_warmup, h_samples = SCALE_DEPTH["scale_chees_hmc"]
+    h_grads = (h_warmup + h_samples) * (L + 1)  # batched gradients, each chain's count
+    hres = ftt.hmc_chain(48, staged=staged, n_samples=h_samples, n_warmup=h_warmup,
+                         config=ftt.HMCConfig(n_leapfrog=L, target_accept=0.8), n_chains=c,
+                         init_position=m.z, init_jitter=0.05)
+    torch.cuda.synchronize()
+    h_wall = time.perf_counter() - t0
+    h_stats = logistic_stats(hres.samples["w"], hres.divergences, w_true, sd)
+    h_ess_per_grad = h_stats["ess_min"] / h_grads
+    row.update(hmc_l16={"warmup": h_warmup, "samples": h_samples, "wall_s": h_wall,
+                        "step_size": hres.step_size, "grad_evals_per_s": c * h_grads / h_wall,
+                        "ms_per_batched_gradient": 1e3 * h_wall / h_grads,
+                        **h_stats, "ess_per_grad": h_ess_per_grad},
+               ess_per_grad_over_hmc_l16=ess_per_grad / h_ess_per_grad)
+    emit(row)
+    check_logistic_stats(stats, "scale_chees")
+    check(ess_per_grad >= h_ess_per_grad, f"scale_chees: ChEES ESS per gradient "
+          f"{ess_per_grad} below fixed-L16 HMC's {h_ess_per_grad}")
+
+
+def phase_scale_densemass():
+    """bench_scale_densemass: dense-mass HMC (L = 32, target 0.85) on the
+    d = 256 correlated linear model, 128 chains, against its closed form."""
+    import fugue_tpu_torch as ftt
+    from fugue_tpu_torch.inference import hmc
+
+    d, n, c = DENSEMASS_SHAPE
+    L = 32
+    n_warmup, n_samples = SCALE_DEPTH["scale_densemass"]
+    n_transitions = n_warmup + n_samples
+    x, y, _, tril = densemass_data(d, n)
+    mean, cov = densemass_posterior(x, y, tril)
+    sd = torch.diagonal(cov).sqrt()
+    staged = ftt.stage(densemass_model(x, y, tril), device="cuda")
+    row = {"phase": "scale_densemass", "card": card_line(), "d": d, "N": n, "chains": c,
+           "n_leapfrog": L, "warmup": n_warmup, "samples": n_samples, "mass": "dense",
+           "step_jitter": 0.5, "init": f"MAP + {DENSEMASS_JITTER} jitter"}
+
+    # the batched gradient: no host read, its kernels and device time
+    grad_u = torch.func.vmap(torch.func.grad_and_value(staged.potential))
+    q = mean.float() + 0.1 * torch.randn((c, d), device="cuda")
+    grad_u(q)
+    syncs = _host_syncs(lambda: grad_u(q))
+    _, events = traced_kernels(lambda: grad_u(q))
+    row.update(potential_host_syncs=syncs, kernels_per_gradient=len(events),
+               device_us_per_gradient=sum(e.time_range.elapsed_us() for e in events),
+               ms_per_gradient=median_ms(lambda: grad_u(q), reps=10))
+    check(syncs == 0, f"scale_densemass: {syncs} host syncs in a batched gradient")
+
+    # the warm start of the logistic rows: from the prior's init (bench.py's)
+    # the first window's covariance takes in the chains' way in, which the
+    # mass adaptation then carries (PERF.md §6); the MAP is the
+    # Gaussian posterior's mean, checked against the closed form
+    cfg_map = ftt.MAPConfig(n_iterations=120, optimizer="lbfgs", n_restarts=1)
+    m, map_wall, _ = _timed_syncs(lambda: ftt.map_estimate(0, staged=staged, config=cfg_map))
+    map_z = ((m.z.double() - mean) / sd).abs().max().item()
+    row.update(map_wall_s=map_wall, map_max_sd_from_mean=map_z)
+    check(map_z < 0.05, f"scale_densemass: MAP {map_z} posterior sds from the closed form")
+    # step jitter 0.5, as bench_scale_plate's: with a well adapted Sigma every
+    # direction turns at about the same rate, and epsilon * 32 at the default
+    # 0.2 lands near two turns (ESS 0.29 of a draw, R-hat 1.014 at 200 + 200;
+    # PERF.md §6)
+    cfg = ftt.HMCConfig(n_leapfrog=L, mass="dense", target_accept=0.85, jitter=0.5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ftt.hmc_chain(22, staged=staged, n_samples=n_samples, n_warmup=n_warmup, config=cfg,
+                        n_chains=c, init_position=m.z, init_jitter=DENSEMASS_JITTER)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = densemass_stats(res.samples["w"], res.divergences, mean, cov)
+
+    # the dense algebra of a transition: one momentum draw (cholesky_ex of
+    # Sigma and a triangular solve, on every draw) and L + 2 products Sigma p
+    # (one per leapfrog position update, two kinetic energies)
+    sigma = res.inv_mass
+    z = torch.randn((c, d), device="cuda")
+    _, draw_events = traced_kernels(lambda: hmc.momentum_from_normal(sigma, z))
+    _, vel_events = traced_kernels(lambda: hmc.mass_velocity(sigma, z))
+    draw_us = sum(e.time_range.elapsed_us() for e in draw_events)
+    vel_us = sum(e.time_range.elapsed_us() for e in vel_events)
+    one, _ = _one_transition(lambda: ftt.hmc_chain(3, staged=staged, n_samples=1, config=cfg,
+                                                   n_chains=c, resume=res))
+    row.update(wall_s=wall, grad_evals_per_s=c * n_transitions * (L + 1) / wall,
+               ms_per_transition=1e3 * wall / n_transitions, step_size=res.step_size,
+               **stats, sigma_condition_number=torch.linalg.cond(sigma.double()).item(),
+               momentum_draw_host_syncs=_host_syncs(lambda: hmc.momentum_from_normal(sigma, z)),
+               momentum_draw_kernels=len(draw_events), momentum_draw_device_us=draw_us,
+               mass_velocity_device_us=vel_us,
+               dense_algebra_device_us_per_transition=draw_us + (L + 2) * vel_us, **one)
+    emit(row)
+    check_densemass(row, "scale_densemass")
+
+
+def phase_scale_plate():
+    """bench_scale_plate: 128 groups x 8,192 rows in one vectorized observe,
+    64 chains, L = 16, jitter 0.5, from the conjugate warm start; every
+    group against its exact posterior."""
+    import fugue_tpu_torch as ftt
+
+    groups, rows, c = GROUP_PLATE_SHAPE
+    L = 16
+    n_warmup, n_samples = SCALE_DEPTH["scale_plate"]
+    n_transitions = n_warmup + n_samples
+    y = group_plate_data(groups, rows)
+    mean, sd = group_plate_posterior(y)
+    staged = ftt.stage(group_plate_model(y), device="cuda")
+    row = {"phase": "scale_plate", "card": card_line(), "groups": groups, "rows": rows,
+           "chains": c, "n_leapfrog": L, "warmup": n_warmup, "samples": n_samples}
+
+    grad_u = torch.func.vmap(torch.func.grad_and_value(staged.potential))
+    q = mean.float().expand(c, -1).contiguous()
+    grad_u(q)
+    _, events = traced_kernels(lambda: grad_u(q))
+    row.update(potential_host_syncs=_host_syncs(lambda: grad_u(q)),
+               kernels_per_gradient=len(events),
+               device_us_per_gradient=sum(e.time_range.elapsed_us() for e in events),
+               ms_per_gradient=median_ms(lambda: grad_u(q), reps=10))
+
+    # bench.py's warm start: mu = 0, theta_g = ybar_g n/(n + 1)
+    ybar = y.double().mean(dim=1)
+    z0 = torch.cat([torch.zeros(1, device="cuda"), (ybar * rows / (rows + 1.0)).float()])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = ftt.HMCConfig(n_leapfrog=L, jitter=0.5)
+    res = ftt.hmc_chain(23, staged=staged, n_samples=n_samples, n_warmup=n_warmup, config=cfg,
+                        n_chains=c, init_position=z0, init_jitter=0.01)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    stats = group_plate_stats(res.samples["mu"], res.samples["theta"], res.divergences, mean, sd)
+    n_grad = n_transitions * (L + 1)
+    one, _ = _one_transition(lambda: ftt.hmc_chain(3, staged=staged, n_samples=1, config=cfg,
+                                                   n_chains=c, resume=res))
+    row.update(wall_s=wall, obs_grad_rows_per_s=c * n_grad * groups * rows / wall,
+               ms_per_batched_gradient=1e3 * wall / n_grad, step_size=res.step_size,
+               max_memory_allocated_bytes=peak, **stats, **one)
+    emit(row)
+    check_group_plate(row, "scale_plate")
 
 
 def phase_laplace_regression():
@@ -2422,7 +2910,7 @@ def phase_ess_gp():
     import fugue_tpu_torch as ftt
     from fugue_tpu_torch.inference.mcmc_utils import ess_multichain
 
-    n_chains, n_warmup, n_samples = 1024, 200, 400  # cut from 300 + 1000 (PERF.md §4)
+    n_chains, n_warmup, n_samples = 1024, 150, 300  # cut from 300 + 1000 (PERF.md §4)
     k, y, labels = gp_data()
     kt = torch.tensor(k, dtype=torch.float32, device="cuda")
     yt = torch.tensor(y, dtype=torch.float32, device="cuda")
@@ -2492,7 +2980,7 @@ def phase_pt_bimodal():
     """Parallel tempering on the bimodal target, 1024 chains x 8 rungs."""
     import fugue_tpu_torch as ftt
 
-    n_chains, n_warmup, n_samples = 1024, 200, 400
+    n_chains, n_warmup, n_samples = 1024, 150, 300  # cut from 200 + 400 (PERF.md §4)
     cfg = ftt.PTConfig(n_temps=8, beta_min=0.02, n_leapfrog=12)
     res, wall, syncs = _timed_syncs(lambda: ftt.pt_chain(
         0, bimodal_model(), n_samples=n_samples, n_warmup=n_warmup, config=cfg,
@@ -2561,7 +3049,7 @@ def phase_validation_conjugate():
     # the smc adapter's adaptive_smc results, recorded as they return
     with recording(smc_mod, "adaptive_smc") as calls:
         for sampler in ("hmc", "mh", "smc"):
-            cut = dict(n_samples=100, n_warmup=100) if sampler == "hmc" else {}
+            cut = dict(n_samples=60, n_warmup=60) if sampler == "hmc" else {}
             for name, fn, cfg in (
                     ("normal", ftt.validate_conjugate_normal,
                      ftt.ConjugateNormalConfig(n_chains=256, **cut)),
@@ -2630,12 +3118,17 @@ def phase_sbc_normal():
 
     kw = dict(n_datasets=96, n_posterior=63, n_warmup=200, thin=4, device="cuda")
     r, wall, syncs = _timed_syncs(lambda: ftt.sbc(0, model, {"y": np.zeros(8)}, **kw))
+    # the control's wrong prior sits 10 of its sds off: 50 warmup transitions
+    # and unthinned draws reject it as surely as the run's settings (cut for
+    # the scale rows' time)
+    control = {**kw, "n_warmup": 50, "thin": 1}
     bad, bad_wall, _ = _timed_syncs(lambda: ftt.sbc(1, model, {"y": np.zeros(8)},
-                                                    inference_model_fn=wrong, **kw))
+                                                    inference_model_fn=wrong, **control))
     row = {"phase": "sbc_normal", "card": card_line(), "datasets": 96, "posterior_draws": 63,
            "thin": 4, "warmup": 200, "wall_s": wall, "host_syncs": syncs,
            "p_values": r.p_values.tolist(), "chi2": r.chi2.tolist(), "passed": r.passed,
-           "control_wall_s": bad_wall, "control_p_values": bad.p_values.tolist(),
+           "control_warmup": 50, "control_thin": 1, "control_wall_s": bad_wall,
+           "control_p_values": bad.p_values.tolist(),
            "control_passed": bad.passed}
     emit(row)
     check(float(r.p_values.min()) > 1e-4, f"sbc_normal: p-values {r.p_values} (want > 1e-4)")
@@ -2961,7 +3454,7 @@ def phase_serve_eight_schools(direct_grad_evals_per_s=None):
     HTTP at 1,024 chains, and the 512 x 512 log-joint grid."""
     import fugue_tpu_torch as ftt
 
-    n_chains, n_warmup, n_steps = 1024, 200, 200
+    n_chains, n_warmup, n_steps = 1024, 200, 100  # steps cut from 200 (PERF.md §4)
     row = {"phase": "serve_eight_schools", "card": card_line(), "chains": n_chains,
            "warmup": n_warmup, "steps": n_steps}
     with Rpc() as rpc:
@@ -3214,7 +3707,7 @@ def _added_host_syncs(staged, cfg, group, n_chains, n_warmup):
     return out
 
 
-def _interleaved_drive_ms(staged, cfg, group, n_chains, n_warmup=16, rounds=3):
+def _interleaved_drive_ms(staged, cfg, group, n_chains, n_warmup=8, rounds=3):
     """ms per drive (the ε search and n_warmup warmup transitions) of the
     single-device drive and the NCCL drive from the same positions and
     generator seed: each run once first, then timed in turns (single,
@@ -3265,7 +3758,7 @@ def phase_sharded_hmc():
 
     mesh = _nccl_mesh()
     group = ShardLayout.of(mesh).group
-    n_chains, n_warmup, n_samples, L = 1024, 200, 200, 32
+    n_chains, n_warmup, n_samples, L = 1024, 100, 100, 32  # the eight_schools phase's
     staged = ftt.stage(eight_schools_model("cuda"), device="cuda")
     cfg = ftt.HMCConfig(n_leapfrog=L, target_accept=0.9)
     _reset_collectives()
@@ -3305,7 +3798,7 @@ def phase_sharded_hmc():
           f"sharded_hmc: the NCCL collectives add host syncs {syncs}")
 
     n_chains, n = MAIN_SHAPE
-    n_warmup = n_samples = 100  # per transition against gaussian_plate's 200 + 200
+    n_warmup = n_samples = 100  # gaussian_plate's
     n_trans = n_warmup + n_samples
     cfg = ftt.HMCConfig(n_leapfrog=16, jitter=0.5)
     with recording(K, "_value_and_grad") as calls:
@@ -3487,7 +3980,7 @@ def two_ranks_worker(rank: int, world: int, port: int, out: str) -> None:
         torch.distributed.destroy_process_group()
 
 
-TWO_RANKS_HMC = (100, 100)  # warmup, samples
+TWO_RANKS_HMC = (60, 60)  # warmup, samples (cut from 100 + 100, PERF.md §4)
 
 
 def _ring_exchange_ms(particles, mesh, reps: int = 20):
@@ -3750,7 +4243,12 @@ def main(argv=None) -> int:
     run("vi_scale", phase_vi_scale)
     run("abc_rejection", phase_abc_rejection)
     add_smc(run("abc_smc", phase_abc_smc))
-    for name, phase in (("logistic_scale", phase_logistic_scale),
+    logistic_run = run("logistic_scale", phase_logistic_scale)
+    run("scale_nuts", phase_scale_nuts, logistic_run)
+    logistic_run = None  # its design goes before scale_chees makes its own
+    for name, phase in (("scale_chees", phase_scale_chees),
+                        ("scale_densemass", phase_scale_densemass),
+                        ("scale_plate", phase_scale_plate),
                         ("laplace_regression", phase_laplace_regression),
                         ("marginal_gmm", phase_marginal_gmm), ("gibbs_mixed", phase_gibbs_mixed),
                         ("ess_gp", phase_ess_gp), ("pt_bimodal", phase_pt_bimodal)):

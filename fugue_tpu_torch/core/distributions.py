@@ -3,8 +3,8 @@
 The port of ``fugue_tpu/core/distributions.py``: the supports, the base
 class and all 24 distributions, with the JAX package's parameter
 validation, error codes and value dtypes (bool for the Bernoulli pair,
-``settings.int_dtype()`` for categories and counts, a real dtype for the
-rest).
+``settings.int_dtype()`` for categories, ``settings.counting_dtype()`` for
+the drawn counts, a real dtype for the rest).
 
 - ``sample(generator, sample_shape)`` draws with an explicit
   ``torch.Generator``, on the generator's device. Every sampler draws
@@ -795,7 +795,7 @@ class Binomial(Distribution):
         shape = self._full_shape(sample_shape)
         draw = torch.binomial(self._full(self.total_count, shape, generator),
                               self._full(self.probs, shape, generator), generator=generator)
-        return draw.to(settings.int_dtype())
+        return draw.to(settings.counting_dtype())
 
     def log_prob(self, value):
         k = self._real(value)
@@ -833,7 +833,7 @@ class Poisson(Distribution):
 
     def sample(self, generator, sample_shape=()):
         rate = self._full(self.rate, self._full_shape(sample_shape), generator)
-        return torch.poisson(rate, generator=generator).to(settings.int_dtype())
+        return torch.poisson(rate, generator=generator).to(settings.counting_dtype())
 
     def log_prob(self, value):
         k = self._real(value)
@@ -865,7 +865,7 @@ class Geometric(Distribution):
         p = _tensor(self.probs, u)
         # p clamped into (0, 1) for the transform; p = 1 gives 0 below
         k = torch.floor(torch.log1p(-u) / torch.log1p(-torch.clamp(p, 1e-12, 1.0 - 1e-12)))
-        return torch.where(p >= 1.0, 0.0, k).to(settings.int_dtype())
+        return torch.where(p >= 1.0, 0.0, k).to(settings.counting_dtype())
 
     def log_prob(self, value):
         k = self._real(value)
@@ -897,7 +897,7 @@ class NegativeBinomial(Distribution):
         shape = self._full_shape(sample_shape)
         p = self.probs
         lam = self._gamma(self.total_count, generator, shape) * (1.0 - p) / p
-        return torch.poisson(lam, generator=generator).to(settings.int_dtype())
+        return torch.poisson(lam, generator=generator).to(settings.counting_dtype())
 
     def log_prob(self, value):
         r = self.total_count
@@ -937,7 +937,7 @@ class DiscreteUniform(Distribution):
         u = self._uniform(generator, self._full_shape(sample_shape))
         width = self.high - self.low
         k = torch.minimum(torch.floor(u * (width + 1.0)), _tensor(width, u))
-        return (self.low + k).to(settings.int_dtype())
+        return (self.low + k).to(settings.counting_dtype())
 
     def log_prob(self, value):
         v = self._real(value)

@@ -71,6 +71,11 @@ class ErrorContext:
 
     items: dict = field(default_factory=dict)
 
+    def with_item(self, key: str, value: Any) -> "ErrorContext":
+        """Set ``key`` to ``value`` and return this context, for chaining."""
+        self.items[key] = value
+        return self
+
     def render(self) -> str:
         return ", ".join(f"{k}={v!r}" for k, v in self.items.items())
 

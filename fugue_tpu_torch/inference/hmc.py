@@ -493,9 +493,14 @@ def _warm_start_batch(staged, generator, n_chains, init_position, init_jitter):
 
 def constrain_positions(staged: StagedModel, positions):
     """(chains, samples, d) unconstrained → per-site constrained tensors of
-    shape (chains, samples, *site_shape), in one batched model run."""
+    shape (chains, samples, *site_shape), in batched model runs of
+    ``chains`` draws each: the drive's own batch, so memory stays what the
+    drive needed. (The replay computes the whole model, likelihood
+    included: one run over 256 × 256 draws of the d = 1024, N = 100,000
+    logistic model would hold 256 · 256 · 100,000 float32 logits, 26 GB.
+    The JAX package's compiled replay drops that unused work.)"""
     c, s, d = positions.shape
-    out = vmap(lambda z: staged.constrain(z)[0])(positions.reshape(c * s, d))
+    out = vmap(lambda z: staged.constrain(z)[0], chunk_size=c)(positions.reshape(c * s, d))
     return {a: v.reshape(c, s, *v.shape[1:]) for a, v in out.items()}
 
 

@@ -32,8 +32,19 @@ def real_dtype() -> torch.dtype:
     return torch.float64 if x64_enabled() else torch.float32
 
 
+def accum_dtype() -> torch.dtype:
+    """Dtype of log-weight accumulators (log prior, likelihood, factors)."""
+    return torch.float64 if x64_enabled() else torch.float32
+
+
 def int_dtype() -> torch.dtype:
-    """Dtype of integer-valued sites (categories, counts, ranges)."""
+    """Dtype of integer-valued sites (categories, indices)."""
+    return torch.int64 if x64_enabled() else torch.int32
+
+
+def counting_dtype() -> torch.dtype:
+    """Dtype of unbounded counts (the Binomial, Poisson, Geometric,
+    NegativeBinomial and DiscreteUniform draws)."""
     return torch.int64 if x64_enabled() else torch.int32
 
 

@@ -236,3 +236,61 @@ def test_guard_and_factor_accumulate():
     _, tr = run(PriorHandler(0, "cpu"), model)
     assert tr.log_factors == -np.inf
     assert tr.total_log_weight() == -np.inf
+
+
+@pytest.fixture
+def jax_x64():
+    """Set JAX's x64 flag for one test; the suite's True comes back after."""
+    before = jax.config.jax_enable_x64
+
+    def set_x64(on):
+        jax.config.update("jax_enable_x64", on)
+
+    yield set_x64
+    jax.config.update("jax_enable_x64", before)
+
+
+@pytest.mark.parametrize("x64", [True, False])
+@pytest.mark.parametrize("name", ["real_dtype", "accum_dtype", "int_dtype", "counting_dtype"])
+def test_settings_dtypes_match_jax(name, x64, jax_x64):
+    from fugue_tpu import settings as jax_settings
+
+    jax_x64(x64)
+    settings.enable_x64(x64)
+    want = np.dtype(getattr(jax_settings, name)())
+    assert getattr(settings, name)() == getattr(torch, want.name)
+
+
+COUNT_SAMPLERS = {
+    "Binomial": (5, 0.3),
+    "Poisson": (2.5,),
+    "Geometric": (0.4,),
+    "NegativeBinomial": (3.0, 0.6),
+    "DiscreteUniform": (2, 9),
+}
+
+
+@pytest.mark.parametrize("x64", [True, False])
+@pytest.mark.parametrize("name", sorted(COUNT_SAMPLERS))
+def test_count_samplers_draw_counting_dtype(name, x64, jax_x64):
+    """Each count-valued sampler draws in ``counting_dtype`` in both
+    packages, and its ``dtype`` property says so."""
+    jax_x64(x64)
+    settings.enable_x64(x64)
+    args = COUNT_SAMPLERS[name]
+    jd, td = getattr(ft, name)(*args), getattr(ftt, name)(*args)
+    want = np.dtype(jd.sample(jax.random.PRNGKey(0), (4,)).dtype)
+    got = td.sample(torch.Generator().manual_seed(0), (4,))
+    assert got.dtype == getattr(torch, want.name) == settings.counting_dtype()
+    assert td.dtype == got.dtype
+
+
+def test_error_context_with_item_matches_jax():
+    from fugue_tpu.errors import ErrorContext as JaxErrorContext
+    from fugue_tpu_torch.errors import ErrorContext
+
+    ctx = ErrorContext()
+    assert ctx.with_item("site", "x").with_item("n", 3) is ctx
+    want = JaxErrorContext().with_item("site", "x").with_item("n", 3)
+    assert ctx.items == want.items == {"site": "x", "n": 3}
+    assert ctx.render() == want.render()

@@ -31,6 +31,10 @@ parameters sample and score inside a model run on the card. The JSON-RPC
 service runs on the card by default (its MH session reads back once per
 ``mh.step`` request, its SMC and particle filter launch the SMC kernels),
 and a DSL index past the end of an array clamps on the card as on the CPU.
+Dense-mass HMC (bench.py's scale_densemass model at d = 8) takes the same
+transition and the same short chain on the card as on the CPU from the same
+draws, and the 128-group plate's model (at 8 groups) gives the CPU's
+batched gradient on the card in float64, with no host sync.
 """
 
 import math
@@ -41,9 +45,10 @@ import torch
 from torch.func import grad_and_value, vmap
 
 import fugue_tpu_torch as ftt
-from chip_smoke import (_host_syncs, capture, conjugate_evidence_model, eight_schools_model,
-                        hierarchical_model, mixed_discrete_exact, mixed_discrete_model,
-                        plate_model)
+from chip_smoke import (_host_syncs, capture, conjugate_evidence_model, densemass_data,
+                        densemass_model, eight_schools_model, group_plate_data,
+                        group_plate_model, hierarchical_model, mixed_discrete_exact,
+                        mixed_discrete_model, plate_model)
 from fugue_tpu_torch import settings
 from fugue_tpu_torch.inference import chees, hmc, mh, nuts, vi
 from fugue_tpu_torch.inference import mcmc_utils as mu_
@@ -755,3 +760,55 @@ def test_device_trace_is_primed_and_holds_the_block(tmp_path):
     assert 1 <= primed <= PRIMING_KERNELS
     assert sorted(n.split("<")[0].split("::")[-1] for n in kernels
                   if not is_priming_kernel(n)) == ["lse_finish", "lse_partial"]
+
+
+def test_dense_mass_hmc_on_cuda_equals_cpu(monkeypatch):
+    """scale_densemass's model at d = 8, its data made on the CPU and moved:
+    one dense-mass transition from the same standard-normal draws equals the
+    CPU's (1e-10), and a short dense-mass hmc_chain with the same draws
+    gives the same positions, step size and adapted Sigma (1e-9)."""
+    x, y, _, tril = densemass_data(8, 64, device="cpu", dtype=torch.float64)
+    staged = {dev: ftt.stage(densemass_model(x.to(dev), y.to(dev), tril.to(dev)), device=dev)
+              for dev in ("cpu", "cuda")}
+    rng = np.random.default_rng(3)
+    a = rng.normal(size=(8, 8))
+    sigma = a @ a.T / 8 + 0.5 * np.eye(8)
+    q, z, log_u = rng.normal(0.0, 0.1, (16, 8)), rng.normal(size=(16, 8)), np.log(rng.uniform(size=16))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        im = torch.as_tensor(sigma, device=dev)
+        p = hmc.momentum_from_normal(im, torch.as_tensor(z, device=dev))
+        out[dev] = hmc.hmc_transition(staged[dev].potential, torch.as_tensor(q, device=dev), p,
+                                      torch.as_tensor(log_u, device=dev), 0.1, 8, im)
+    (qc, ic), (qg, ig) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(qg.cpu().numpy(), qc.numpy(), **TOL)
+    np.testing.assert_allclose(ig.accept_prob.cpu().numpy(), ic.accept_prob.numpy(), **TOL)
+    assert torch.equal(ig.accepted.cpu(), ic.accepted)
+
+    kw = dict(n_samples=10, n_warmup=20, n_chains=16,
+              config=ftt.HMCConfig(n_leapfrog=8, mass="dense", target_accept=0.85))
+    cpu = ftt.hmc_chain(5, staged=staged["cpu"], **kw)
+    _cpu_draws(monkeypatch)
+    gpu = ftt.hmc_chain(5, staged=staged["cuda"], **kw)
+    assert gpu.positions.is_cuda and gpu.inv_mass.shape == (8, 8)
+    assert gpu.step_size == pytest.approx(cpu.step_size, rel=1e-9)
+    np.testing.assert_allclose(gpu.positions.cpu().numpy(), cpu.positions.numpy(),
+                               rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(gpu.inv_mass.cpu().numpy(), cpu.inv_mass.numpy(), rtol=1e-9)
+
+
+def test_group_plate_gradient_on_cuda_equals_cpu():
+    """scale_plate's model at 8 groups x 8,192 rows (2^16 per chain: the
+    float64 compensated sum's path): the batched gradient and potential on
+    the card equal the CPU's in float64 (1e-10), with no host sync."""
+    y = group_plate_data(8, 8192, device="cpu", dtype=torch.float64)
+    q = np.random.default_rng(4).normal(0.0, 0.5, (16, 9))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        staged = ftt.stage(group_plate_model(y.to(dev)), device=dev)
+        force = vmap(grad_and_value(staged.potential))
+        qd = torch.as_tensor(q, device=dev)
+        out[dev] = force(qd)
+    assert _host_syncs(lambda: force(qd)) == 0
+    for got, want in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **TOL)

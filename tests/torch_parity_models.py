@@ -12,7 +12,8 @@ import torch
 
 import fugue_tpu as ft
 import fugue_tpu_torch as ftt
-from chip_smoke import eight_schools_model, hierarchical_model, plate_model
+from chip_smoke import (densemass_model, eight_schools_model, group_plate_model,
+                        hierarchical_model, logistic_model, plate_model)
 
 
 def torch_eight_schools():
@@ -54,3 +55,71 @@ def plate_pair(n):
         ft.factor(jax_pnormal(y_j, mu, sigma))
 
     return ft.stage(jax_plate), ftt.stage(plate_model(y_t), device="cpu")
+
+
+# bench.py's scale rows. Their models are closures inside the bench
+# functions (bench_scale_*), so the JAX side is written here after them, at
+# whatever width the data has; the torch side is chip_smoke.py's.
+
+
+def jax_logistic(d):
+    """bench._logistic_setup's (and bench_scale_chees's) model."""
+    from fugue_tpu.ops import matmul_bf16x2_fastgrad
+
+    def model(xd, yd):
+        w = ft.sample("w", ft.Normal(0.0, 1.0), sample_shape=(d,))
+        ft.observe("y", ft.BernoulliLogits(matmul_bf16x2_fastgrad(xd, w)), yd)
+
+    return model
+
+
+def logistic_pair(x, y):
+    """The logistic model on bf16-representable ``x`` (N, D) and bool
+    ``y`` (N,), numpy: the design bf16 in both packages."""
+    import jax.numpy as jnp
+
+    xt = torch.as_tensor(x).to(torch.bfloat16)
+    return (ft.stage(jax_logistic(x.shape[1]), jnp.asarray(x, jnp.bfloat16), jnp.asarray(y)),
+            ftt.stage(logistic_model(xt, torch.as_tensor(y)), device="cpu"))
+
+
+def jax_densemass(tril):
+    """bench_scale_densemass's model: w ~ MVN(0, scale_tril), y ~ N(X w, 1)."""
+    import jax.numpy as jnp
+
+    tril = jnp.asarray(tril)
+    d = tril.shape[0]
+
+    def model(xd, yd):
+        w = ft.sample("w", ft.MultivariateNormal(jnp.zeros(d), scale_tril=tril))
+        ft.observe("y", ft.Normal(xd @ w, 1.0), yd)
+
+    return model
+
+
+def densemass_pair(x, y, tril):
+    """The dense-mass row's model on float64 numpy data."""
+    import jax.numpy as jnp
+
+    t = [torch.as_tensor(a) for a in (x, y, tril)]
+    return (ft.stage(jax_densemass(tril), jnp.asarray(x), jnp.asarray(y)),
+            ftt.stage(densemass_model(*t), device="cpu"))
+
+
+def jax_group_plate(groups):
+    """bench_scale_plate's model: mu, theta (groups,), one observe of Y."""
+
+    def model(yd):
+        mu = ft.sample("mu", ft.Normal(0.0, 1.0))
+        theta = ft.sample("theta", ft.Normal(mu, 1.0), sample_shape=(groups,))
+        ft.observe("Y", ft.Normal(theta[:, None], 1.0), yd)
+
+    return model
+
+
+def group_plate_pair(y):
+    """The group plate on float64 numpy ``y`` (groups, rows)."""
+    import jax.numpy as jnp
+
+    return (ft.stage(jax_group_plate(y.shape[0]), jnp.asarray(y)),
+            ftt.stage(group_plate_model(torch.as_tensor(y)), device="cpu"))
