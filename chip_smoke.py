@@ -54,16 +54,23 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  log-evidence and both kernels' launch counts (4 * stages
                  + 3 logsumexp, stages - 1 resample).
 7. nuts_eight_schools  ftt.nuts_chain at bench_nuts's shape: 1024 chains,
-                 NUTSConfig() (max_depth 8, target 0.8, diagonal mass),
-                 float32, 200 warmup + 200 samples; gates on split-R-hat,
-                 divergence rate and the posterior mean of mu (the HMC
-                 phase's constant: the same posterior). Reports
-                 grad-evals/s, ESS/s, mean tree depth, the lock-step leaves
-                 per transition (batch maximum) beside each chain's mean,
-                 and host syncs per transition.
-8. nuts_plate    ftt.nuts_chain on the 2^20-row plate (64 chains, uniform
-                 init, 100 + 100, diagonal mass); the HMC plate's gates and
-                 one kernel call per batched model run.
+                 NUTSConfig() (the async drive, max_depth 8, target 0.8,
+                 diagonal mass), float32, 200 warmup + 200 samples; beside
+                 it the lock-step build (loop="while") at 100 + 100. Each
+                 gated on split-R-hat, divergence rate and the posterior
+                 mean of mu (the HMC phase's constant: the same posterior),
+                 the async drive on one host read per 16 iterations.
+                 Reports for each grad-evals/s (bench_nuts's count and the
+                 batched model runs made), ESS/s, mean tree depth, batched
+                 leaves per transition beside each chain's mean, host syncs
+                 per transition, and kernels and ms per batched leaf of one
+                 traced transition from the run's end.
+8. nuts_plate    the async drive on the 2^20-row plate (64 chains, uniform
+                 init, 100 + 100, diagonal mass); the HMC plate's gates,
+                 the kernel held against its plain version on one of the
+                 run's own calls, and exactly one kernel call per
+                 iteration, phase start (3), step-size search evaluation
+                 and constrain replay.
 9. smc_coin      ftt.adaptive_smc, float32, 131,072 particles, on the
                  Beta-Bernoulli coin flip (BASELINE config 1), with 3 MH
                  moves and with one 16-leapfrog HMC move (gradients through
@@ -158,13 +165,14 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  one transition, MAP iterations/s and host syncs.
 22. scale_nuts   bench_scale_nuts at full width: ftt.nuts_chain
                  (NUTSConfig(max_depth=6)) on logistic_scale's target from its
-                 MAP (jitter 0.05), 256 chains, 100 + 100 (bench: 300 + 128);
+                 MAP (jitter 0.05), 256 chains, 60 + 60 (bench: 300 + 128);
                  logistic_scale's gates. Grad-evals counted exactly (every
                  chain's leapfrogs plus one root gradient per transition),
-                 transitions/s, mean tree depth, lock-step leaves per
-                 transition beside each chain's mean, host syncs per
-                 transition and per leaf, ESS per gradient beside
-                 logistic_scale's HMC.
+                 transitions/s, mean tree depth, the async drive's
+                 batched leaves per transition beside each chain's mean,
+                 host syncs per transition and per leaf, the lock-step
+                 build's factor on one transition from the run's end, ESS
+                 per gradient beside logistic_scale's HMC.
 23. scale_chees  bench_scale_chees at full width: the correlated design
                  X = bf16(Z Q diag(s) Q^T), s from 0.2 to 3, made on the card
                  after logistic_scale's is freed; the MAP by L-BFGS within
@@ -283,7 +291,15 @@ on the card (NCCL refuses two ranks on one device):
                  against the single-device drive (_host_syncs); the NCCL
                  drive's ms per warmup transition over the single-device
                  drive's, both warm, timed in turns from the same start (8
-                 warmup transitions per drive, 3 rounds).
+                 warmup transitions per drive, 3 rounds). Then
+                 parallel.sharded_nuts_chain (the async drive) on
+                 eight-schools, 1024 chains, 50 + 50: eight-schools'
+                 gates, exactly one all-reduce per warmup iteration plus the
+                 run's 11 others, none through the host, and no host sync
+                 beyond one per 16 iterations, with or without the group;
+                 and on the plate (64 x 2^20, 50 + 50), the kernel held on
+                 one of its calls, exactly one kernel call per iteration,
+                 phase start, search evaluation and constrain replay.
 39. sharded_smc  parallel's adaptive_smc(mesh=) on the hierarchical model at
                  131,072 particles, 3 MH moves: the smc phase's gates and
                  launch contracts, and both kernels against their plain
@@ -888,10 +904,11 @@ def _check_plate(post, launches, model_runs, what):
           f"{what}: {launches['nll']} plate kernel calls for {model_runs} batched model runs")
 
 
-def _plate_run(run):
+def _plate_run(run, pass_runs=False):
     """``run(staged, y)`` on the plate model over y = plate_data at
     MAIN_SHAPE's rows, timed, with the kernel's launch counts and the
-    batched model runs set to 0 just before and read just after."""
+    batched model runs set to 0 just before and read just after;
+    ``pass_runs``: ``run(staged, y, runs)`` with the model's run counter."""
     import fugue_tpu_torch as ftt
 
     y = plate_data(MAIN_SHAPE[1])
@@ -900,7 +917,7 @@ def _plate_run(run):
     model_runs[0] = 0
     reset_launches()
     t0 = time.perf_counter()
-    res = run(staged, y)
+    res = run(staged, y, model_runs) if pass_runs else run(staged, y)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return y, res, wall, read_launches(), model_runs[0]
@@ -1474,72 +1491,185 @@ def phase_smc_discrete():
 
 
 def _nuts_tree_stats(res, n_chains, n_transitions, wall):
-    """The tree build's costs: lock-step leaves per transition (the batch
-    maximum, what every chain waits for) beside the mean over chains of its
-    own leaves, their ratio, host syncs per transition and wall ms per
-    lock-step leaf."""
+    """The tree build's costs: batched leaf evaluations per transition (the
+    lock-step build's batch maximum, or the async drive's iterations) beside
+    the mean over chains of its own leaves, their ratio, host syncs per
+    transition and wall ms per batched leaf."""
     mean_leaves = res.n_leapfrogs / (n_chains * n_transitions)
-    max_leaves = res.lockstep_leaves / n_transitions
+    batched = res.lockstep_leaves / n_transitions
     return {"mean_tree_depth": res.tree_depths.double().mean().item(),
             "n_leapfrogs": res.n_leapfrogs, "lockstep_leaves": res.lockstep_leaves,
-            "leaves_per_transition_max": max_leaves, "leaves_per_transition_mean": mean_leaves,
-            "lockstep_over_mean": max_leaves / mean_leaves,
+            "warmup_leaves": res.warmup_leaves,
+            "leaves_per_transition_max": batched, "leaves_per_transition_mean": mean_leaves,
+            "lockstep_over_mean": batched / mean_leaves,
             "host_syncs_per_transition": res.host_syncs / n_transitions,
             "ms_per_lockstep_leaf": 1e3 * wall / res.lockstep_leaves}
 
 
-def phase_nuts_eight_schools():
+@contextlib.contextmanager
+def runs_during(module, name, runs):
+    """``module.name`` wrapped for the block: the batched model runs
+    (``runs[0]``, the model's own counter) made inside its calls are added
+    to the one-element list the block gets."""
+    real = getattr(module, name)
+    made = [0]
+
+    def wrapper(*args, **kwargs):
+        before = runs[0]
+        out = real(*args, **kwargs)
+        made[0] += runs[0] - before
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield made
+    finally:
+        setattr(module, name, real)
+
+
+def counted_eight_schools(runs):
+    """The eight-schools model with ``runs[0]`` counting its batched runs."""
+    model = eight_schools_model("cuda")
+
+    def counted():
+        runs[0] += 1
+        return model()
+
+    return counted
+
+
+def _nuts_eight_schools_run(loop, n_warmup, n_samples, n_chains=1024):
+    """One eight-schools NUTS run (seed 5, max depth 8) through
+    ``ftt.nuts_chain`` with ``NUTSConfig(loop=loop)``: its row (posterior,
+    tree costs, grad-evals/s both ways, ESS/s, and one resumed transition
+    traced: kernels and ms per batched leaf) after the phase's gates."""
     import fugue_tpu_torch as ftt
 
-    n_chains, n_warmup, n_samples = 1024, 200, 200
-    staged = ftt.stage(eight_schools_model("cuda"), device="cuda")
+    runs = [0]
+    staged = ftt.stage(counted_eight_schools(runs), device="cuda")
+    cfg = ftt.NUTSConfig(loop=loop)
+    runs[0] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = ftt.nuts_chain(5, n_samples=n_samples, n_warmup=n_warmup, config=ftt.NUTSConfig(),
+    res = ftt.nuts_chain(5, n_samples=n_samples, n_warmup=n_warmup, config=cfg,
                          n_chains=n_chains, staged=staged)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    post = _eight_schools_posterior(res, n_chains, n_samples, "nuts eight_schools")
+    model_runs = runs[0]
+    what = f"nuts eight_schools ({loop or 'async'})"
+    post = _eight_schools_posterior(res, n_chains, n_samples, what)
     n_transitions = n_warmup + n_samples
-    # grad-evals as bench.py's bench_nuts counts them: every chain's own
-    # leapfrogs plus one root evaluation per transition
-    grad_evals = res.n_leapfrogs + n_chains * n_transitions
-    emit({"phase": "nuts_eight_schools", "chains": n_chains, "warmup": n_warmup,
-          "samples": n_samples, "max_depth": 8, "wall_s": wall,
-          "grad_evals_per_s": grad_evals / wall,
-          "ess_per_s": min(post["ess_mu"], post["ess_tau"]) / wall, **post,
-          **_nuts_tree_stats(res, n_chains, n_transitions, wall)})
+    # one resumed transition from the run's end, traced: its kernels over its
+    # batched leaf evaluations and its start (the lock-step root, or the
+    # async phase start)
+    one, one_res = _one_transition(lambda: ftt.nuts_chain(
+        6, staged=staged, n_samples=1, n_warmup=0, config=cfg, n_chains=n_chains, resume=res),
+        reps=1)
+    per_leaf = one_res.lockstep_leaves + 1
+    row = {"phase": "nuts_eight_schools", "drive": loop or "async", "card": card_line(),
+           "chains": n_chains, "warmup": n_warmup, "samples": n_samples, "max_depth": 8,
+           "wall_s": wall, "transitions_per_s": n_chains * n_transitions / wall,
+           # bench_nuts's count: every chain's own leapfrogs plus one root per
+           # transition; and the batched model runs the drive made, times the
+           # chains (the eight-schools replays of every chain at every leaf)
+           "grad_evals_per_s": (res.n_leapfrogs + n_chains * n_transitions) / wall,
+           "batched_model_runs": model_runs,
+           "evaluated_grad_evals_per_s": n_chains * model_runs / wall,
+           "ess_per_s": min(post["ess_mu"], post["ess_tau"]) / wall,
+           "one_transition": {**one, "batched_leaves": one_res.lockstep_leaves,
+                              "kernels_per_leaf": one["transition_kernels"] / per_leaf,
+                              "device_us_per_leaf": 1e3 * one["transition_device_ms"] / per_leaf,
+                              "ms_per_leaf": one["transition_ms"] / per_leaf},
+           **post, **_nuts_tree_stats(res, n_chains, n_transitions, wall)}
+    emit(row)
     rhat, div, z = post["split_rhat_mu"], post["divergence_rate"], post["mu_z"]
-    check(rhat < 1.02, f"nuts eight_schools split-R-hat(mu) {rhat} >= 1.02")
-    check(div < 0.05, f"nuts eight_schools divergence rate {div} >= 0.05")
-    check(abs(z) < 5.0, f"nuts eight_schools mu mean {post['mu_mean']} is {z:.2f} MC-SE "
+    check(rhat < 1.02, f"{what} split-R-hat(mu) {rhat} >= 1.02")
+    check(div < 0.05, f"{what} divergence rate {div} >= 0.05")
+    check(abs(z) < 5.0, f"{what} mu mean {post['mu_mean']} is {z:.2f} MC-SE "
           f"from {EIGHT_SCHOOLS_MU_MEAN}")
+    return row
+
+
+def phase_nuts_eight_schools():
+    """bench_nuts: NUTSConfig() (the async drive) at 1,024 chains, 200 +
+    200; beside it the lock-step build (loop="while") at 100 + 100."""
+    rows = {"async": _nuts_eight_schools_run(None, 200, 200)}
+    rows["while"] = _nuts_eight_schools_run("while", 100, 100)
+    a, w = rows["async"], rows["while"]
+    check(a["host_syncs_per_transition"] * 400 <= math.ceil(a["lockstep_leaves"] / 16),
+          f"async nuts eight_schools: {a['host_syncs_per_transition'] * 400} host reads for "
+          f"{a['lockstep_leaves']} iterations")
+    emit({"phase": "nuts_eight_schools", "async_over_lockstep": {
+        "ms_per_transition": (a["wall_s"] / 400) / (w["wall_s"] / 200),
+        "batched_leaves_per_transition": (a["leaves_per_transition_max"]
+                                          / w["leaves_per_transition_max"]),
+        "kernels_per_leaf": (a["one_transition"]["kernels_per_leaf"]
+                             / w["one_transition"]["kernels_per_leaf"]),
+        "ess_per_s": a["ess_per_s"] / w["ess_per_s"]}})
+
+
+def _nuts_plate_run(drive, what):
+    """``drive(staged)``, a NUTS run on the plate model, through
+    ``_plate_run`` with the kernel's calls recorded and the batched model
+    runs of the step-size search and the constrain replay counted: (y,
+    res, wall, launches, model_runs, those runs, the kernel held against
+    its plain version on one of the run's own calls), after the gates of
+    exactly one kernel call per iteration, phase start (3), search
+    evaluation and constrain replay, and one host read per 16 iterations."""
+    from fugue_tpu_torch.inference import hmc as hmc_mod
+    from fugue_tpu_torch.inference import nuts as nuts_mod
+    from fugue_tpu_torch.ops import kernels as K
+
+    made = {}
+
+    def run(staged, y, runs):
+        # nuts_chain replays through nuts's name, sharded_nuts_chain through hmc's
+        with runs_during(hmc_mod, "find_reasonable_epsilon", runs) as search, \
+                runs_during(nuts_mod, "constrain_positions", runs) as replay, \
+                runs_during(hmc_mod, "constrain_positions", runs) as replay_sharded:
+            res = drive(staged)
+        made.update(search=search[0], constrain=replay[0] + replay_sharded[0])
+        return res
+
+    with recording(K, "_value_and_grad") as calls:
+        y, res, wall, launches, model_runs = _plate_run(run, pass_runs=True)
+    hold = _hold_path_plate(K, *_path_plate_call(calls, MAIN_SHAPE[0], what), what)
+    calls.clear()
+    want = res.lockstep_leaves + 3 + made["search"] + made["constrain"]
+    check(launches["nll"] == want,
+          f"{what}: {launches['nll']} plate kernel calls, want {res.lockstep_leaves} "
+          f"iterations + 3 + {made['search']} search + {made['constrain']} constrain = {want}")
+    check(res.host_syncs == res.lockstep_leaves // 16,
+          f"{what}: {res.host_syncs} host reads for {res.lockstep_leaves} iterations")
+    return y, res, wall, launches, model_runs, made, hold
 
 
 def phase_nuts_plate():
+    """The async drive on the 2^20-row plate: the plate's gates, the kernel
+    held against its plain version on one of the path's own calls, and
+    exactly one kernel call per iteration, phase start, step-size search
+    evaluation and constrain replay."""
     import fugue_tpu_torch as ftt
 
     n_chains, n_warmup, n_samples = MAIN_SHAPE[0], 100, 100  # cut from 200 + 200
     n = MAIN_SHAPE[1]
-    y, res, wall, launches, model_runs = _plate_run(
-        lambda staged, y: ftt.nuts_chain(3, n_samples=n_samples, n_warmup=n_warmup,
-                                         config=ftt.NUTSConfig(), n_chains=n_chains,
-                                         staged=staged))
+    y, res, wall, launches, model_runs, made, hold = _nuts_plate_run(
+        lambda staged: ftt.nuts_chain(3, n_samples=n_samples, n_warmup=n_warmup,
+                                      config=ftt.NUTSConfig(), n_chains=n_chains,
+                                      staged=staged), "nuts_plate")
     post = _plate_posterior(res, y, n_chains, n_samples, "nuts plate")
     n_transitions = n_warmup + n_samples
     grad_evals = res.n_leapfrogs + n_chains * n_transitions  # each chain's own
-    emit({"phase": "nuts_plate", "chains": n_chains, "rows": n, "warmup": n_warmup,
-          "samples": n_samples, "max_depth": 8, "wall_s": wall,
+    emit({"phase": "nuts_plate", "drive": "async", "card": card_line(), "chains": n_chains,
+          "rows": n, "warmup": n_warmup, "samples": n_samples, "max_depth": 8, "wall_s": wall,
           "grad_evals_per_s": grad_evals / wall, "rows_per_s": grad_evals * n / wall,
-          # the lock-step build evaluates every chain at every leaf
-          "rows_evaluated_per_s": n_chains * (res.lockstep_leaves + n_transitions) * n / wall,
+          # every chain is evaluated at every iteration
+          "rows_evaluated_per_s": n_chains * model_runs * n / wall,
           "ess_per_s": post["ess_min"] / wall, "batched_model_runs": model_runs,
-          "launches": launches, **post, **_nuts_tree_stats(res, n_chains, n_transitions, wall)})
+          "search_runs": made["search"], "constrain_runs": made["constrain"],
+          "launches": launches, "kernel_vs_plain_on_a_call_of_the_run": hold, **post,
+          **_nuts_tree_stats(res, n_chains, n_transitions, wall)})
     _check_plate(post, launches, model_runs, "nuts plate")
-    # a batched model run for the root and every lock-step leaf, besides the
-    # epsilon search and the final constrain pass
-    check(launches["nll"] >= res.lockstep_leaves + n_transitions,
-          f"{launches['nll']} plate kernel calls for {res.lockstep_leaves} leaves")
     return launches
 
 
@@ -2309,7 +2439,7 @@ def phase_logistic_scale():
 # ---------------------------------------------------------------------------
 
 SCALE_DEPTH = {  # (warmup, samples); bench.py's in the comment
-    "scale_nuts": (100, 100),  # 300 + 128
+    "scale_nuts": (60, 60),  # 300 + 128 (100 + 100 before the async drive, PERF.md §4)
     "scale_chees": (300, 256),  # 300 + 256
     # the fixed-L16 HMC beside it: ESS per gradient is a rate, so a shorter
     # drive with a larger sampling share (1/2 against 256/556) is fair to HMC
@@ -2519,6 +2649,15 @@ def phase_scale_nuts(logistic=None):
     row.update(one_transition={**one, "lockstep_leaves": one_res.lockstep_leaves,
                                "kernels_per_leaf": one["transition_kernels"] / per_leaf,
                                "device_us_per_leaf": 1e3 * one["transition_device_ms"] / per_leaf})
+    # the lock-step build's factor on one transition from the same state,
+    # beside the async drive's ratio of the run
+    lock, lock_res = _one_transition(lambda: ftt.nuts_chain(
+        3, staged=logistic["staged"], n_samples=1, n_warmup=0,
+        config=ftt.NUTSConfig(max_depth=6, loop="while"), n_chains=c, resume=res), reps=1)
+    row.update(lockstep_one_transition={
+        **lock, "lockstep_leaves": lock_res.lockstep_leaves,
+        "lockstep_over_mean": lock_res.lockstep_leaves / (lock_res.n_leapfrogs / c),
+        "ms_per_leaf": lock["transition_ms"] / (lock_res.lockstep_leaves + 1)})
     row.update(wall_s=wall, grad_evals_per_s=grad_evals / wall,
                transitions_per_s=c * n_transitions / wall, step_size=res.step_size,
                **_nuts_tree_stats(res, c, n_transitions, wall),
@@ -3743,6 +3882,82 @@ def _interleaved_drive_ms(staged, cfg, group, n_chains, n_warmup=8, rounds=3):
             "ratio_max": max(ratios)}
 
 
+# the collectives of one sharded NUTS run besides one all-reduce per warmup
+# iteration: the chain count, the ε₀ consensus, the Welford merge's two sums
+# and the seven gathers of the result
+NUTS_FIXED_COLLECTIVES = 1 + 1 + 2 + 7
+
+
+def _nuts_drive_syncs(staged, group, n_chains, n_warmup):
+    """Host syncs measured in one async warmup of ``n_warmup`` transitions
+    per chain at a fixed ε₀ (no search), single-device and over the group,
+    from the same positions and seed, beside the reads the drive counted."""
+    import fugue_tpu_torch as ftt
+    from fugue_tpu_torch.inference.hmc import initial_positions
+    from fugue_tpu_torch.inference.nuts import make_nuts_drive
+
+    q0 = initial_positions(staged, torch.Generator(device="cuda").manual_seed(5), n_chains,
+                           "uniform")
+    cfg = ftt.NUTSConfig(step_size=0.2)
+    out = {}
+    for name, grp in (("single_device", None), ("nccl", group)):
+        drive = make_nuts_drive(staged, cfg, n_chains, 0, n_warmup, chain_group=grp)
+        got = {}
+        out[name] = _host_syncs(lambda: got.update(
+            counts=drive(q0, torch.Generator(device="cuda").manual_seed(6))[-1]))
+        out[name + "_counted"] = got["counts"]["host_syncs"]
+    return out
+
+
+def _sharded_nuts(staged, mesh, group):
+    """parallel.sharded_nuts_chain (the async drive) at one NCCL rank on
+    eight-schools, 1,024 chains, 50 + 50 (nuts_eight_schools: 200 + 200):
+    its gates, one all-reduce per warmup iteration, and no host read beyond
+    one per chunk of 16 iterations (the syncs measured in two warmups of
+    different lengths differ by the chunk reads counted, with and without
+    the group)."""
+    from fugue_tpu_torch.parallel import sharded_nuts_chain
+
+    n_chains, n_warmup, n_samples = 1024, 50, 50
+    _reset_collectives()
+    t0 = time.perf_counter()
+    res = sharded_nuts_chain(5, staged=staged, n_samples=n_samples, n_warmup=n_warmup,
+                             n_chains=n_chains, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_collectives()
+    post = _eight_schools_posterior(res, n_chains, n_samples, "sharded_nuts mu")
+    short, long = (_nuts_drive_syncs(staged, group, n_chains, w) for w in (4, 12))
+    n_trans = n_warmup + n_samples
+    emit({"phase": "sharded_hmc", "run": "nuts_eight_schools", "card": card_line(),
+          "backend": "nccl", "ranks": 1, "chains": n_chains, "warmup": n_warmup,
+          "samples": n_samples, "wall_s": wall, "ms_per_transition": 1e3 * wall / n_trans,
+          "grad_evals_per_s": (res.n_leapfrogs + n_chains * n_trans) / wall,
+          "collectives": counts, "warmup_iterations": res.warmup_leaves,
+          "collectives_per_warmup_iteration":
+              (counts["collectives"] - NUTS_FIXED_COLLECTIVES) / res.warmup_leaves,
+          "host_syncs_warmup_4": short, "host_syncs_warmup_12": long,
+          **post, **_nuts_tree_stats(res, n_chains, n_trans, wall)})
+    rhat, div, z = post["split_rhat_mu"], post["divergence_rate"], post["mu_z"]
+    check(rhat < 1.02, f"sharded_nuts split-R-hat(mu) {rhat} >= 1.02")
+    check(div < 0.05, f"sharded_nuts divergence rate {div} >= 0.05")
+    check(abs(z) < 5.0, f"sharded_nuts mu mean {post['mu_mean']} is {z:.2f} MC-SE from "
+          f"{EIGHT_SCHOOLS_MU_MEAN}")
+    check(counts == {"collectives": res.warmup_leaves + NUTS_FIXED_COLLECTIVES,
+                     "host_staged": 0},
+          f"sharded_nuts collectives {counts}, want {res.warmup_leaves} warmup iterations + "
+          f"{NUTS_FIXED_COLLECTIVES}, none through the host")
+    check(res.host_syncs == res.lockstep_leaves // 16,
+          f"sharded_nuts: {res.host_syncs} host reads for {res.lockstep_leaves} iterations")
+    for name in ("single_device", "nccl"):
+        added, counted = (long[name] - short[name],
+                          long[name + "_counted"] - short[name + "_counted"])
+        check(added == counted, f"sharded_nuts ({name}): {added} more host syncs in the longer "
+              f"warmup for {counted} more chunk reads")
+    check(short["nccl"] == short["single_device"] and long["nccl"] == long["single_device"],
+          f"sharded_nuts: the NCCL collectives add host syncs {short} {long}")
+
+
 def phase_sharded_hmc():
     """parallel.sharded_hmc_chain at world size 1 under NCCL: eight-schools
     at 1,024 chains (the eight_schools phase's configuration) and the 2^20
@@ -3753,7 +3968,7 @@ def phase_sharded_hmc():
     NCCL drive against the single-device drive timed in turns."""
     import fugue_tpu_torch as ftt
     from fugue_tpu_torch.ops import kernels as K
-    from fugue_tpu_torch.parallel import sharded_hmc_chain
+    from fugue_tpu_torch.parallel import sharded_hmc_chain, sharded_nuts_chain
     from fugue_tpu_torch.parallel.mesh import ShardLayout
 
     mesh = _nccl_mesh()
@@ -3797,6 +4012,8 @@ def phase_sharded_hmc():
     check(syncs["nccl"] == syncs["single_device"],
           f"sharded_hmc: the NCCL collectives add host syncs {syncs}")
 
+    _sharded_nuts(staged, mesh, group)
+
     n_chains, n = MAIN_SHAPE
     n_warmup = n_samples = 100  # gaussian_plate's
     n_trans = n_warmup + n_samples
@@ -3817,7 +4034,30 @@ def phase_sharded_hmc():
           "rows_per_s": n_chains * n_trans * 17 * n / wall, "batched_model_runs": model_runs,
           "launches": launches, "kernel_vs_plain_on_a_call_of_the_run": hold, **post})
     _check_plate(post, launches, model_runs, "sharded plate")
-    return launches
+
+    # the async NUTS drive over the mesh on the plate (nuts_plate: 100 + 100)
+    n_warmup = n_samples = 50
+    _reset_collectives()
+    y, res, wall, nuts_launches, model_runs, made, hold = _nuts_plate_run(
+        lambda staged: sharded_nuts_chain(3, staged=staged, n_samples=n_samples,
+                                          n_warmup=n_warmup, n_chains=n_chains, mesh=mesh),
+        "sharded_nuts plate")
+    counts = _read_collectives()
+    post = _plate_posterior(res, y, n_chains, n_samples, "sharded nuts plate")
+    n_trans = n_warmup + n_samples
+    emit({"phase": "sharded_hmc", "run": "nuts_plate", "card": card_line(), "backend": "nccl",
+          "ranks": 1, "chains": n_chains, "rows": n, "warmup": n_warmup, "samples": n_samples,
+          "wall_s": wall, "ms_per_transition": 1e3 * wall / n_trans,
+          "batched_model_runs": model_runs, "search_runs": made["search"],
+          "constrain_runs": made["constrain"], "launches": nuts_launches,
+          "collectives": counts, "kernel_vs_plain_on_a_call_of_the_run": hold, **post,
+          **_nuts_tree_stats(res, n_chains, n_trans, wall)})
+    _check_plate(post, nuts_launches, model_runs, "sharded nuts plate")
+    check(counts == {"collectives": res.warmup_leaves + NUTS_FIXED_COLLECTIVES,
+                     "host_staged": 0},
+          f"sharded nuts plate collectives {counts}, want {res.warmup_leaves} warmup "
+          f"iterations + {NUTS_FIXED_COLLECTIVES}, none through the host")
+    return {k: launches[k] + nuts_launches[k] for k in launches}
 
 
 def phase_sharded_smc():
@@ -4291,7 +4531,7 @@ def main(argv=None) -> int:
     emit({"kernel_vs_plain_on_main_path_calls": PATH_HOLDS})
     emit({"kernels": [
         # the plate kernel's calls on its paths: HMC, NUTS, ChEES and VI, and
-        # the sharded HMC, the sharded VI and the two ranks' HMC and VI
+        # the sharded HMC and NUTS, the sharded VI and the two ranks' HMC and VI
         entry("normal_loglik_sum_value_and_grad", "nll", "normal_loglik_sum",
               kernel_rows[MAIN_SHAPE],
               launches["nll"] + nuts_launches["nll"] + chees_launches["nll"]

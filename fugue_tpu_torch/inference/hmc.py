@@ -87,7 +87,7 @@ class DualAveragingState:
     log_eps_bar: Any
     h_bar: Any
     mu: Any
-    t: float  # adaptation step counter, kept on the host
+    t: Any  # adaptation step counter: a host float, or 0-dim on the device (fractional)
 
     @staticmethod
     def init(eps0: torch.Tensor) -> "DualAveragingState":
@@ -128,7 +128,7 @@ def dual_averaging_update(
 
 @dataclass
 class WelfordState:
-    count: float  # kept on the host: batch sizes are known there
+    count: Any  # a host float (batch sizes known there), or 0-dim on the device (masked)
     mean: Any  # (d,)
     m2: Any  # (d,) elementwise squares, or (d, d) outer products (dense)
 
@@ -164,15 +164,50 @@ def welford_push_batch(state: WelfordState, batch) -> WelfordState:
     return WelfordState(count=n_new, mean=mean_new, m2=m2_new)
 
 
+def welford_push_masked(state: WelfordState, batch, mask) -> WelfordState:
+    """``welford_push_batch`` of the (C, d) rows of ``batch`` where the (C,)
+    ``mask`` is True: the asynchronous NUTS drive pushes the chains that
+    finished a transition in an iteration. The count becomes a 0-dim
+    tensor on the device (no host read); an all-false mask leaves the
+    state as it was."""
+    w = mask.to(state.mean.dtype)
+    n_b = torch.sum(w)
+    mean_b = torch.sum(batch * w[:, None], dim=0) / torch.clamp(n_b, min=1.0)
+    centered = (batch - mean_b) * w[:, None]
+    n_new = state.count + n_b
+    delta = mean_b - state.mean
+    safe_new = torch.clamp(n_new, min=1.0)
+    mean_new = state.mean + delta * (n_b / safe_new)
+    wgt = state.count * n_b / safe_new
+    if state.m2.dim() == 2:
+        m2_new = state.m2 + centered.T @ centered + wgt * torch.outer(delta, delta)
+    else:
+        m2_new = state.m2 + torch.sum(centered**2, dim=0) + wgt * delta**2
+    empty = n_b == 0
+    return WelfordState(count=torch.where(empty, state.count, n_new),
+                        mean=torch.where(empty, state.mean, mean_new),
+                        m2=torch.where(empty, state.m2, m2_new))
+
+
+def _at_least(x, lo: float):
+    """max(x, lo) for a host float, or on the device for a tensor."""
+    return torch.clamp(x, min=lo) if isinstance(x, torch.Tensor) else max(x, lo)
+
+
 def welford_merge_across(state: WelfordState, group) -> WelfordState:
     """Merge the ranks' Welford moments over a process group (the Chan
     parallel combine as sums): every rank gets the moments of all chains.
-    Every rank pushes the same batches, so the total count is the local
-    count times the group size, known on the host."""
+    A host count (every rank pushed the same batches) is the local count
+    times the group size; a device count (``welford_push_masked``) is summed
+    with the means, in the same all-reduce."""
     if group is None:
         return state
-    total = state.count * torch.distributed.get_world_size(group)
-    mean_g = cross_sum(state.count * state.mean, group) / max(total, 1.0)
+    if isinstance(state.count, torch.Tensor):
+        packed = cross_sum(torch.cat([state.count.reshape(1), state.count * state.mean]), group)
+        total, mean_g = packed[0], packed[1:] / torch.clamp(packed[0], min=1.0)
+    else:
+        total = state.count * torch.distributed.get_world_size(group)
+        mean_g = cross_sum(state.count * state.mean, group) / max(total, 1.0)
     delta = state.mean - mean_g
     if state.m2.dim() > state.mean.dim():
         corr = state.count * (delta.unsqueeze(-1) * delta.unsqueeze(-2))
@@ -182,7 +217,7 @@ def welford_merge_across(state: WelfordState, group) -> WelfordState:
 
 
 def welford_variance(state: WelfordState, regularize: bool = True):
-    var = state.m2 / max(state.count - 1.0, 1.0)
+    var = state.m2 / _at_least(state.count - 1.0, 1.0)
     if regularize:  # Stan-style shrinkage toward unit for small counts
         n = state.count
         var = (n / (n + 5.0)) * var + 1e-3 * (5.0 / (n + 5.0))
@@ -192,7 +227,7 @@ def welford_variance(state: WelfordState, regularize: bool = True):
 def welford_covariance(state: WelfordState, regularize: bool = True):
     """Dense covariance estimate with Stan-style shrinkage toward a scaled
     identity (keeps the mass matrix positive definite at small counts)."""
-    cov = state.m2 / max(state.count - 1.0, 1.0)
+    cov = state.m2 / _at_least(state.count - 1.0, 1.0)
     eye = torch.eye(cov.shape[-1], dtype=cov.dtype, device=cov.device)
     if regularize:
         n = state.count
@@ -222,22 +257,46 @@ def mass_kinetic(inv_mass, p):
     return 0.5 * torch.sum(p * mass_velocity(inv_mass, p), dim=-1)
 
 
-def momentum_from_normal(inv_mass, z):
+@dataclass
+class MassFactor:
+    """What a momentum draw needs of a mass, computed once per mass:
+    sqrt(inv_mass) (diagonal), or the Cholesky factor L of Σ = L Lᵀ with
+    ``ok`` (``cholesky_ex`` found Σ positive definite; (C,) for one Σ per
+    chain)."""
+
+    root: Any  # (d,) sqrt of the diagonal, or L: (d, d) or (C, d, d)
+    ok: Any = None  # None (diagonal), or 0-dim / (C,) bool
+
+
+def mass_factor(inv_mass) -> MassFactor:
+    if inv_mass.dim() == 1:
+        return MassFactor(torch.sqrt(inv_mass))
+    chol, info = torch.linalg.cholesky_ex(inv_mass)
+    return MassFactor(chol, info == 0)
+
+
+def momentum_from_factor(factor: MassFactor, z):
     """Standard normal draws ``z`` (..., d) → momenta p ~ N(0, M):
     z / sqrt(inv_mass) for a diagonal mass; for a dense Σ = L Lᵀ, p = L⁻ᵀ z,
     the solution of p L = z row by row. A Σ that is not positive definite
     gives NaN momenta, as the JAX package's Cholesky does, so the
     transition is divergent and rejected; ``cholesky_ex``'s error code
     selects them on the device, with no host read."""
-    if inv_mass.dim() == 1:
-        return z / torch.sqrt(inv_mass)
-    chol, info = torch.linalg.cholesky_ex(inv_mass)
-    if inv_mass.dim() == 3:  # one Σ per chain of (C, d) draws
+    if factor.ok is None:
+        return z / factor.root
+    chol = factor.root
+    if chol.dim() == 3:  # one Σ per chain of (C, d) draws
         p = torch.linalg.solve_triangular(chol, z.unsqueeze(-2), upper=False, left=False)
-        return torch.where((info == 0)[:, None], p.squeeze(-2), torch.nan)
-    d = inv_mass.shape[0]
+        return torch.where(factor.ok[:, None], p.squeeze(-2), torch.nan)
+    d = chol.shape[0]
     p = torch.linalg.solve_triangular(chol, z.reshape(-1, d), upper=False, left=False)
-    return torch.where(info == 0, p, torch.nan).reshape(z.shape)
+    return torch.where(factor.ok, p, torch.nan).reshape(z.shape)
+
+
+def momentum_from_normal(inv_mass, z):
+    """``momentum_from_factor`` with the mass factored on this call; a drive
+    that draws momenta every iteration factors once (``mass_factor``)."""
+    return momentum_from_factor(mass_factor(inv_mass), z)
 
 
 def mass_draw_momentum(generator: torch.Generator, inv_mass, shape):

@@ -131,10 +131,12 @@ def sharded_nuts_chain(
     device="cuda",
 ):
     """NUTS with the chain batch split over the mesh's chain axes: each rank
-    builds its chains' trees on its own (its host loop runs its own number
-    of leaves); only the warmup adaptation reduces over the ranks.
-    ``lockstep_leaves`` and ``host_syncs`` are the summed counts of every
-    rank."""
+    builds its chains' trees on its own; only the warmup adaptation reduces
+    over the ranks. The async drive (the default) makes one all-reduce per
+    warmup iteration (finished count, acceptance sum and running chains),
+    so the ranks run the same warmup iterations; each rank samples on its
+    own, with no collective. ``lockstep_leaves``, ``warmup_leaves`` and
+    ``host_syncs`` are the summed counts of every rank."""
     from ..inference.nuts import NUTSConfig, NUTSResult, make_nuts_drive
     from ..inference.hmc import constrain_positions
 
@@ -146,9 +148,9 @@ def sharded_nuts_chain(
                             discrete=discrete, chain_group=shard.group)
     q_f, qs, aps, divs, depths, eps, inv_mass, n_leaps, counts = drive(q0, generator)
     positions = shard.gather(qs.movedim(0, 1))
-    host = shard.gather(torch.tensor([[counts["leaves"], counts["host_syncs"]]],
-                                     device=staged.device))
-    leaves, syncs = host.sum(dim=0).tolist()
+    host = shard.gather(torch.tensor(
+        [[counts["leaves"], counts["host_syncs"], counts["warmup_leaves"]]], device=staged.device))
+    leaves, syncs, warm = host.sum(dim=0).tolist()
     return NUTSResult(
         samples=constrain_positions(staged, positions),
         positions=positions,
@@ -161,6 +163,7 @@ def sharded_nuts_chain(
         n_leapfrogs=int(shard.gather(n_leaps).to(torch.int64).sum()),
         lockstep_leaves=int(leaves),
         host_syncs=int(syncs),
+        warmup_leaves=int(warm),
     )
 
 

@@ -144,6 +144,25 @@ def _children_hmc_nuts(rank, world, out):
     return res
 
 
+def _children_nuts_async(rank, world, out):
+    """The async drive on two ranks, dense mass: its collectives counted."""
+    import torch
+
+    import fugue_tpu_torch as ftt
+    from fugue_tpu_torch.parallel import make_chain_mesh, sharded_nuts_chain
+    from fugue_tpu_torch.parallel.mesh import COUNTS
+
+    staged = _torch_normal_staged(ftt, torch)
+    mesh = make_chain_mesh(device="cpu")
+    COUNTS["collectives"] = 0
+    r = sharded_nuts_chain(3, staged=staged, n_samples=200, n_warmup=100, n_chains=16,
+                           config=ftt.NUTSConfig(mass="dense"), mesh=mesh)
+    return {"mu": r.samples["mu"].numpy(), "eps": np.array(r.step_size),
+            "mass": r.inv_mass.numpy(), "final": r.final_positions.numpy(),
+            "counts": np.array([COUNTS["collectives"], r.warmup_leaves, r.lockstep_leaves,
+                                r.host_syncs, r.n_leapfrogs])}
+
+
 def _switch_model(ftt, torch):
     def switch():
         z = ftt.sample("z", ftt.Bernoulli(0.7))
@@ -263,6 +282,7 @@ def _children_engines(rank, world, out):
 
 
 CHILDREN = {"collectives": _children_collectives, "hmc_nuts": _children_hmc_nuts,
+            "nuts_async": _children_nuts_async,
             "smc_mh_vi": _children_smc_mh_vi, "engines": _children_engines}
 
 
