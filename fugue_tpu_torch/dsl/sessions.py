@@ -28,6 +28,7 @@ from ..inference.hmc import HmcSession  # noqa: F401  (re-export)
 from ..inference.mh import MHState, init_mh_state, mh_step
 from ..inference.smc import SMCConfig, adaptive_smc
 from ..ops.kernels import systematic_resample_from_u0
+from ..utils import profiling
 from ..ops.resampling import effective_sample_size, normalize_log_weights
 from ..runtime.staging import StagedModel, stage
 from .compiler import as_data
@@ -95,6 +96,7 @@ class MhSession:
         latest = self._history[-1]
         # one device-to-host transfer: every latest value, then the count
         # (float64 holds the float32, bool and integer values exactly)
+        profiling.host_read("mh_session.step")
         packed = torch.cat([v.reshape(-1).to(torch.float64) for v in latest.values()]
                            + [self._accepts.reshape(1).to(torch.float64)]).cpu().numpy()
         self._accepts_read = int(packed[-1])
@@ -110,6 +112,7 @@ class MhSession:
         """The capped history, oldest first, read back from the device."""
         if not self._history:
             return []
+        profiling.host_read("mh_session.history", len(self._history[0]))
         stacked = {a: torch.stack([h[a] for h in self._history]).cpu().numpy()
                    for a in self._history[0]}
         return [{a: v[i] for a, v in stacked.items()} for i in range(len(self._history))]
@@ -120,6 +123,7 @@ class MhSession:
 
     def chain_values(self, address: str) -> np.ndarray:
         """(n_steps, n_chains) history for one site."""
+        profiling.host_read("mh_session.chain_values")
         return torch.stack([h[str(address)] for h in self._history]).cpu().numpy()
 
 
@@ -175,6 +179,7 @@ class ParticleFilter:
         u0 = torch.rand((), generator=self._generator, device=p.device, dtype=p.dtype)
         self.particles, self.log_weights, mean, var, ess = pf_step(
             p, self.log_weights, float(y), noise, u0, self.process_sd, self.obs_sd)
+        profiling.host_read("particle_filter.observe")
         m, v, e = torch.stack([mean, var, ess]).tolist()  # the one host read
         est = {"mean": m, "var": v, "ess": e}
         self.estimates.append(est)
@@ -200,6 +205,7 @@ def smc_run(
         "posterior_means": {},
         "posterior_vars": {},
     }
+    profiling.host_read("smc_run.posterior", 2 * len(res.particles))
     for a in res.particles:
         out["posterior_means"][a] = res.posterior_mean(a).cpu().numpy().tolist()
         out["posterior_vars"][a] = res.posterior_var(a).cpu().numpy().tolist()
@@ -248,6 +254,7 @@ def log_joint_grid(
         return staged.log_joint(latents)
 
     z = vmap(lambda yv: vmap(lambda xv: at(xv, yv))(xs))(ys)
+    profiling.host_read("log_joint_grid", 3)
     return {
         "x": xs.cpu().numpy(),
         "y": ys.cpu().numpy(),

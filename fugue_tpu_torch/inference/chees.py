@@ -20,7 +20,10 @@ How it is expressed in PyTorch:
   reads τ = h·T/ε back from the device once, and that is its only host
   read (``ChEESResult.host_syncs`` counts them). The adaptation state (ε,
   log T, Adam's moments and step counter, the Welford moments and the
-  principal direction) stays on the device.
+  principal direction) stays on the device. While a profiler session
+  runs, each transition is a ``chees.transition`` span (the parent of its
+  ``potential`` spans) and each host read names its site
+  (``utils.profiling``).
 - A transition is L + 1 batched value-and-grad runs (``batched_force``):
   U at both ends comes with its gradient, and the sampling phase's log
   joint is −U of the kept point, with no further run.
@@ -47,6 +50,7 @@ import torch
 from .. import settings
 from ..parallel.mesh import cross_mean
 from ..runtime.staging import StagedModel, stage
+from ..utils import profiling
 from .hmc import (
     DualAveragingState,
     WelfordState,
@@ -306,29 +310,34 @@ def chees_transition(potential_fn: Callable, Q, z, log_u, eps, T, h, inv_mass,
 
     ``z`` (C, d) standard normals become the momenta (``momentum_from_normal``),
     ``log_u`` (C,) are the accept log-uniforms; ``eps``, ``T`` and ``h`` are
-    0-dim tensors or floats. τ = h·T/ε is read back to the host once, and
-    every chain takes L = clip(ceil(τ), 1, max_leapfrog) leapfrog steps
-    (L = 1 for a τ that is not finite).
+    0-dim tensors or floats. τ = h·T/ε is read back to the host once (not
+    at all when all three are floats), and every chain takes L =
+    clip(ceil(τ), 1, max_leapfrog) leapfrog steps (L = 1 for a τ that is
+    not finite).
 
     Returns ``(Q_out, Q_prop, P_end, accept_prob, accepted, divergent, L,
     U_out)``: L a host int, U_out the potential at ``Q_out``."""
-    tau = float(h * T / eps)  # the transition's one host read
-    L = min(max(math.ceil(tau), 1), max_leapfrog) if math.isfinite(tau) else 1
-    P = momentum_from_normal(inv_mass, z)
-    force = batched_force(potential_fn)
-    G0, U0 = force(Q)
-    K0 = mass_kinetic(inv_mass, P)
-    Q_new, P_new, _, U1 = leapfrog(force, Q, P, eps, L, inv_mass, G0)
-    K1 = mass_kinetic(inv_mass, P_new)
-    delta = (U0 + K0) - (U1 + K1)
-    finite = torch.isfinite(delta) & torch.isfinite(U1)
-    divergent = (~finite) | (-delta > max_delta_energy)
-    accept_prob = torch.where(
-        divergent, 0.0, torch.clamp(torch.exp(torch.clamp(delta, max=50.0)), max=1.0))
-    accepted = (~divergent) & (log_u < delta)
-    Q_out = torch.where(accepted[:, None], Q_new, Q)
-    U_out = torch.where(accepted, U1, U0)
-    return Q_out, Q_new, P_new, accept_prob, accepted, divergent, L, U_out
+    with profiling.span("chees.transition"):
+        tau = h * T / eps
+        if isinstance(tau, torch.Tensor):  # the transition's one host read
+            profiling.host_read("chees.tau")
+        tau = float(tau)
+        L = min(max(math.ceil(tau), 1), max_leapfrog) if math.isfinite(tau) else 1
+        P = momentum_from_normal(inv_mass, z)
+        force = batched_force(potential_fn)
+        G0, U0 = force(Q)
+        K0 = mass_kinetic(inv_mass, P)
+        Q_new, P_new, _, U1 = leapfrog(force, Q, P, eps, L, inv_mass, G0)
+        K1 = mass_kinetic(inv_mass, P_new)
+        delta = (U0 + K0) - (U1 + K1)
+        finite = torch.isfinite(delta) & torch.isfinite(U1)
+        divergent = (~finite) | (-delta > max_delta_energy)
+        accept_prob = torch.where(
+            divergent, 0.0, torch.clamp(torch.exp(torch.clamp(delta, max=50.0)), max=1.0))
+        accepted = (~divergent) & (log_u < delta)
+        Q_out = torch.where(accepted[:, None], Q_new, Q)
+        U_out = torch.where(accepted, U1, U0)
+        return Q_out, Q_new, P_new, accept_prob, accepted, divergent, L, U_out
 
 
 class GeneratorDraws:
@@ -549,6 +558,8 @@ def chees_chain(
     q_f, qs, ljs, aps, divs, eps_f, T_f, mean_L, inv_mass_f, counts = drive(
         q0, GeneratorDraws(generator), **overrides)
     positions = qs.movedim(0, 1)  # (chains, samples, d)
+    profiling.host_read("chees_chain.trajectory_length")
+    profiling.host_read("chees_chain.step_size")
     T_float = float(T_f)
     t_cap = 2.0 * math.pi * config.max_trajectory_periods
     return ChEESResult(
@@ -624,9 +635,11 @@ class CheesSession:
             self.trajectory_length, h, self.inv_mass, self.config.max_leapfrog,
             self.config.max_delta_energy)
         self._Q = Q
-        return {
-            "positions": Q.cpu().numpy(),
-            "accept_mean": float(torch.mean(ap)),
-            "divergences": int(torch.sum(div)),
-            "n_leapfrog": L,
-        }
+        profiling.host_read("chees_session.positions")
+        positions = Q.cpu().numpy()
+        profiling.host_read("chees_session.accept_mean")
+        accept_mean = float(torch.mean(ap))
+        profiling.host_read("chees_session.divergences")
+        divergences = int(torch.sum(div))
+        return {"positions": positions, "accept_mean": accept_mean,
+                "divergences": divergences, "n_leapfrog": L}

@@ -12,7 +12,10 @@ How it is expressed in PyTorch:
   of ``batched_force(potential)`` = ``vmap(grad_and_value(potential))``,
   which runs the per-chain Python model once for the whole batch and gives
   the potential with the gradient, so a transition costs exactly L+1
-  batched evaluations.
+  batched evaluations. Each call is a ``potential`` span and each drive
+  step an ``hmc.transition`` span (``utils.profiling``, recorded while a
+  profiler session runs); every read back to the host names its site
+  (``profiling.host_read``).
 - Noise is drawn outside the deterministic step: ``hmc_transition`` takes
   the momenta ``p`` and the log-uniforms ``log_u`` as arguments, and the
   drive draws them from an explicit ``torch.Generator`` on the device.
@@ -46,6 +49,7 @@ from torch.func import grad_and_value, vmap
 from .. import settings
 from ..parallel.mesh import cross_mean, cross_sum
 from ..runtime.staging import StagedModel, stage
+from ..utils import profiling
 
 
 # ---------------------------------------------------------------------------
@@ -322,8 +326,15 @@ def identity_mass(d: int, dense: bool, *, dtype, device, chains: Optional[int] =
 
 
 def batched_force(potential_fn: Callable) -> Callable:
-    """(C, d) positions → (∇U (C, d), U (C,)) in one batched model run."""
-    return vmap(grad_and_value(potential_fn))
+    """(C, d) positions → (∇U (C, d), U (C,)) in one batched model run, a
+    ``potential`` span."""
+    force = vmap(grad_and_value(potential_fn))
+
+    def potential_span(q):
+        with profiling.span("potential"):
+            return force(q)
+
+    return potential_span
 
 
 def _per_chain(eps):
@@ -449,10 +460,12 @@ def find_reasonable_epsilon(potential_fn, q, p, inv_mass, max_iters: int = 60,
     force_fn = batched_force(potential_fn)
     q1, p1 = q[None], p[None]
     g0, u0 = force_fn(q1)
+    profiling.host_read("find_reasonable_epsilon.h0")
     h0 = float(u0[0] + mass_kinetic(inv_mass, p1)[0])
 
     def log_accept(eps):
         qe, pe, _, ue = leapfrog(force_fn, q1, p1, eps, n_steps, inv_mass, g0)
+        profiling.host_read("find_reasonable_epsilon.h")
         la = h0 - float(ue[0] + mass_kinetic(inv_mass, pe)[0])
         return la if math.isfinite(la) else -math.inf
 
@@ -494,6 +507,7 @@ def find_reasonable_epsilon_per_chain(force_fn, q, p, inv_mass, max_iters: int =
     up = la > log_half
     for _ in range(max_iters):
         moving = torch.where(up, la > log_half, la < log_half) & (eps > 1e-10) & (eps < 1e7)
+        profiling.host_read("find_reasonable_epsilon_per_chain.any_moving")
         if not bool(torch.any(moving)):
             break
         eps = torch.where(moving, torch.where(up, 2.0 * eps, 0.5 * eps), eps)
@@ -519,6 +533,7 @@ def initial_positions(staged: StagedModel, generator: torch.Generator,
     if init != "prior":
         raise ValueError(f"unknown init {init!r}; use 'uniform' or 'prior'")
     # one prior run per chain, once per run: draws need per-chain seeds
+    profiling.host_read("initial_positions.seeds")
     seeds = torch.randint(0, 2**62, (n_chains,), generator=generator,
                           device=staged.device).tolist()
     return torch.stack([staged.initial_position(s) for s in seeds]).to(dt)
@@ -678,20 +693,21 @@ def make_hmc_drive(
             welford = WelfordState.init(d, dense, dtype=dt, device=dev, chains=chains)
             ema = torch.full((n_chains,), 0.5, dtype=dt, device=dev)
             for _ in range(n_steps):
-                if config.adapt_step_size:
-                    eps = torch.exp(da.log_eps)
-                else:
-                    eps = torch.exp(da.mu - math.log(10.0))
-                q, info = step(q, eps, inv_mass)
-                if per_chain:
-                    da = dual_averaging_update(da, info.accept_prob, config.target_accept)
-                    welford = welford_push_batch(welford, q.unsqueeze(-2))
-                else:
-                    da = dual_averaging_update(
-                        da, cross_mean(torch.mean(info.accept_prob), chain_group),
-                        config.target_accept)
-                    welford = welford_push_batch(welford, q)
-                ema = 0.9 * ema + 0.1 * info.accept_prob
+                with profiling.span("hmc.transition"):
+                    if config.adapt_step_size:
+                        eps = torch.exp(da.log_eps)
+                    else:
+                        eps = torch.exp(da.mu - math.log(10.0))
+                    q, info = step(q, eps, inv_mass)
+                    if per_chain:
+                        da = dual_averaging_update(da, info.accept_prob, config.target_accept)
+                        welford = welford_push_batch(welford, q.unsqueeze(-2))
+                    else:
+                        da = dual_averaging_update(
+                            da, cross_mean(torch.mean(info.accept_prob), chain_group),
+                            config.target_accept)
+                        welford = welford_push_batch(welford, q)
+                    ema = 0.9 * ema + 0.1 * info.accept_prob
             if per_chain:
                 return q, da, welford
             return rescue_stuck(q, ema, generator), da, welford
@@ -721,11 +737,12 @@ def make_hmc_drive(
         aps = torch.empty((n_samples, n_chains), dtype=dt, device=dev)
         divs = torch.empty((n_samples, n_chains), dtype=torch.bool, device=dev)
         for i in range(n_samples):
-            q, info = step(q, eps_final, inv_mass)
-            qs[i] = q
-            ljs[i] = -info.potential
-            aps[i] = info.accept_prob
-            divs[i] = info.divergent
+            with profiling.span("hmc.transition"):
+                q, info = step(q, eps_final, inv_mass)
+                qs[i] = q
+                ljs[i] = -info.potential
+                aps[i] = info.accept_prob
+                divs[i] = info.divergent
         return q, qs, ljs, aps, divs, eps_final, inv_mass
 
     return drive
@@ -820,6 +837,7 @@ def hmc_chain(
     q_f, qs, ljs, aps, divs, eps_final, inv_mass_f = drive(q0, generator, **overrides)
 
     positions = qs.movedim(0, 1)  # (n_chains, n_samples, d)
+    profiling.host_read("hmc_chain.step_size")
     return HMCResult(
         samples=constrain_positions(staged, positions),
         positions=positions,
@@ -839,6 +857,7 @@ def hmc_chain(
 
 def draw_seed(generator: torch.Generator) -> int:
     """One int seed from ``generator`` (a host read)."""
+    profiling.host_read("draw_seed")
     return int(torch.randint(0, 2**62, (1,), generator=generator, device=generator.device))
 
 
@@ -877,6 +896,7 @@ class HmcSession:
             # averaging runs afterwards, so the one-step estimate can be
             # unstable at L steps
             p = mass_draw_momentum(self._generator, self.inv_mass, (self.staged.dim,))
+            profiling.host_read("hmc_session.step_size")
             self.step_size = float(find_reasonable_epsilon(
                 self.staged.potential, self._q, p, self.inv_mass,
                 n_steps=config.n_leapfrog))
@@ -895,6 +915,7 @@ class HmcSession:
         da = DualAveragingState.init(torch.tensor(self.step_size, dtype=torch.float64))
         for _ in range(n_steps):
             info = self.step()
+            profiling.host_read("hmc_session.warmup.accept_prob")
             da = dual_averaging_update(da, info.accept_prob.double().cpu(),
                                        self.config.target_accept)
             self.step_size = float(torch.exp(da.log_eps))
@@ -939,6 +960,7 @@ class HmcSession:
         ap = torch.where(divergent, torch.zeros_like(delta),
                          torch.clamp(torch.exp(torch.clamp(delta, max=50.0)), max=1.0))
         self._q = torch.where(accepted[:, None], q_new, q)[0]
+        profiling.host_read("hmc_session.step_recorded", 6)
         return {
             "accepted": bool(accepted[0]),
             "divergent": bool(divergent[0]),

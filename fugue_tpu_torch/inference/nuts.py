@@ -52,7 +52,10 @@ after the async warmup), for C chains at once:
 
 Both drives keep each chain's exact leapfrog count in int32 and sum it on
 the host in int64 (``NUTSResult.n_leapfrogs``), and count the batched leaf
-evaluations and the host reads they ran.
+evaluations and the host reads they ran. While a profiler session runs,
+each iteration of the async drive is a ``nuts.iteration`` span (the parent
+of its ``potential`` span) and each host read names its site
+(``utils.profiling``).
 
 ``make_nuts_drive(chain_group=...)`` is the sharded drive: only the
 adaptation reduces over the process group (the ε₀ consensus, the midpoint's
@@ -75,6 +78,7 @@ import torch
 from .. import settings
 from ..parallel.mesh import cross_mean, cross_sum
 from ..runtime.staging import StagedModel, stage
+from ..utils import profiling
 from .hmc import (
     DualAveragingState,
     WelfordState,
@@ -338,6 +342,7 @@ def nuts_transition(
         k += 1
         if depth < max_depth:
             syncs += 1
+            profiling.host_read("nuts.lockstep.any_active")
             if not bool(active.any()):
                 break
 
@@ -837,25 +842,27 @@ def make_nuts_drive_async(
             i = 0
             while True:
                 for _ in range(CHUNK):
-                    eps = torch.exp(da.log_eps) if config.adapt_step_size else eps_start
-                    active = t < n_phase
-                    trees, completed, accept, _, _ = build.iterate(
-                        trees, active, draws.leaf(i, active),
-                        lambda done: draws.restart(i, done), eps, factor, inv_mass)
-                    t = t + completed
-                    done = completed.to(dt)
-                    # finished chains, their acceptance sum, chains still running
-                    sums = cross_sum(torch.stack(
-                        [done, accept * done, (t < n_phase).to(dt)], dim=1).sum(dim=0),
-                        chain_group)
-                    da = _da_fractional_update(da, sums[1] / torch.clamp(sums[0], min=1.0),
-                                               sums[0] / total, config.target_accept)
-                    q = trees.V[:, V_["q"]]
-                    welford = welford_push_masked(welford, q, completed)
-                    ema = torch.where(completed, 0.9 * ema + 0.1 * accept, ema)
-                    n_leaps.add_(active)
-                    i += 1
+                    with profiling.span("nuts.iteration"):
+                        eps = torch.exp(da.log_eps) if config.adapt_step_size else eps_start
+                        active = t < n_phase
+                        trees, completed, accept, _, _ = build.iterate(
+                            trees, active, draws.leaf(i, active),
+                            lambda done: draws.restart(i, done), eps, factor, inv_mass)
+                        t = t + completed
+                        done = completed.to(dt)
+                        # finished chains, their acceptance sum, chains still running
+                        sums = cross_sum(torch.stack(
+                            [done, accept * done, (t < n_phase).to(dt)], dim=1).sum(dim=0),
+                            chain_group)
+                        da = _da_fractional_update(da, sums[1] / torch.clamp(sums[0], min=1.0),
+                                                   sums[0] / total, config.target_accept)
+                        q = trees.V[:, V_["q"]]
+                        welford = welford_push_masked(welford, q, completed)
+                        ema = torch.where(completed, 0.9 * ema + 0.1 * accept, ema)
+                        n_leaps.add_(active)
+                        i += 1
                 counts["host_syncs"] += 1
+                profiling.host_read("nuts.warmup.any_running")
                 if not bool(sums[2] > 0):
                     break
             counts["leaves"] += i
@@ -875,18 +882,20 @@ def make_nuts_drive_async(
             i = 0
             while True:
                 for _ in range(CHUNK):
-                    active = t < n_samples
-                    trees, completed, accept, depth, diverging = build.iterate(
-                        trees, active, draws.leaf(i, active),
-                        lambda done: draws.restart(i, done), eps, factor, inv_mass)
-                    rows = torch.clamp(t, max=n_samples - 1)
-                    new = torch.cat([trees.V[:, V_["q"]],
-                                     torch.stack([accept, diverging, depth], dim=1)], dim=1)
-                    rec.index_put_((rows, cols), _where(completed, new, rec[rows, cols]))
-                    t = t + completed
-                    n_leaps.add_(active)
-                    i += 1
+                    with profiling.span("nuts.iteration"):
+                        active = t < n_samples
+                        trees, completed, accept, depth, diverging = build.iterate(
+                            trees, active, draws.leaf(i, active),
+                            lambda done: draws.restart(i, done), eps, factor, inv_mass)
+                        rows = torch.clamp(t, max=n_samples - 1)
+                        new = torch.cat([trees.V[:, V_["q"]],
+                                         torch.stack([accept, diverging, depth], dim=1)], dim=1)
+                        rec.index_put_((rows, cols), _where(completed, new, rec[rows, cols]))
+                        t = t + completed
+                        n_leaps.add_(active)
+                        i += 1
                 counts["host_syncs"] += 1
+                profiling.host_read("nuts.sampling.any_running")
                 if not bool(torch.any(t < n_samples)):
                     break
             counts["leaves"] += i
@@ -975,6 +984,8 @@ def nuts_chain(
     q_f, qs, aps, divs, depths, eps_final, inv_mass_f, n_leaps, counts = drive(
         q0, generator, **overrides)
     positions = qs.movedim(0, 1)
+    profiling.host_read("nuts_chain.step_size")
+    profiling.host_read("nuts_chain.n_leapfrogs")
     return NUTSResult(
         samples=constrain_positions(staged, positions),
         positions=positions,
@@ -1026,6 +1037,7 @@ class NutsSession:
             self.step_size = float(config.step_size)
         else:
             p = mass_draw_momentum(self._generator, self.inv_mass, (self.staged.dim,))
+            profiling.host_read("nuts_session.step_size")
             self.step_size = float(find_reasonable_epsilon(
                 self.staged.potential, self._q, p, self.inv_mass))
         self.max_depth = config.max_depth
@@ -1056,6 +1068,7 @@ class NutsSession:
             self.staged.potential, self._q[None], self._noise(), self.step_size,
             self.inv_mass, self.max_depth, self.config.max_delta_energy, record=record)
         self._q = q_new[0]
+        profiling.host_read("nuts_session.step", 8 if record else 5)
         out = {
             "accept_prob": float(info["accept_prob"][0]),
             "depth": int(info["depth"][0]),

@@ -24,6 +24,13 @@ since a request reaches only its own process. Replies that
 summarize draws (``hmc.sharded``, ``vi.run``) compute the summaries on the
 device and read them to the host once.
 
+While a profiler session runs (``utils.profiling``), a request over HTTP is
+a ``serve.request`` span (read, parse, ``handle``, JSON, write) holding
+``serve.lock_wait`` (until the lock is held), ``serve.method`` (the
+method, its name an attribute) and ``serve.reply`` (the result made JSON
+values, under the lock), all with the request's id; ``handle`` called
+without a transport gives its spans an id of their own.
+
 Usage::
 
     python -m fugue_tpu_torch.serve --port 8700            # on the card
@@ -43,6 +50,7 @@ import numpy as np
 import torch
 
 from .core.rng import fold_seed
+from .utils import profiling
 
 
 def _jsonable(x):
@@ -51,6 +59,7 @@ def _jsonable(x):
     if isinstance(x, (list, tuple)):
         return [_jsonable(v) for v in x]
     if isinstance(x, torch.Tensor):
+        profiling.host_read("serve.reply")
         return x.detach().cpu().tolist()  # one transfer per leaf; bool and bf16 too
     if isinstance(x, np.ndarray):
         return x.tolist()
@@ -62,6 +71,8 @@ def _jsonable(x):
 def _split_rows(stats: Dict[str, Any], names) -> Dict[str, Dict[str, list]]:
     """``{address: (len(names), k) tensor}`` → ``{address: {name: [k
     floats]}}``, with ONE device-to-host read for all of them."""
+    if stats:
+        profiling.host_read("serve.summaries")
     host = torch.cat(list(stats.values()), dim=1).cpu().numpy() if stats else None
     out, off = {}, 0
     for addr, t in stats.items():
@@ -117,14 +128,23 @@ class FugueService:
         """One JSON-RPC call: {"method", "params"?, "id"?} →
         {"result"} | {"error": {"code", "message"}} (+ echoed id)."""
         rid = request.get("id")
+        span_request = profiling.request_id()
+        if span_request is None:  # no transport opened a serve.request span
+            span_request = profiling.new_request_id()
         try:
             method = request.get("method")
             fn = self.methods.get(method)
             if fn is None:
                 raise ServiceError(-32601, f"unknown method {method!r}")
-            with self._lock:
-                result = fn(request.get("params") or {})
-                out = {"result": _jsonable(result)}
+            with profiling.span("serve.lock_wait", request=span_request):
+                self._lock.acquire()
+            try:
+                with profiling.span("serve.method", request=span_request, method=method):
+                    result = fn(request.get("params") or {})
+                with profiling.span("serve.reply", request=span_request):
+                    out = {"result": _jsonable(result)}
+            finally:
+                self._lock.release()
         except ServiceError as e:
             out = {"error": {"code": e.code, "message": str(e)}}
         except Exception as e:  # engine/typed errors surface as messages
@@ -233,6 +253,7 @@ class FugueService:
         if p.get("recorded"):
             return sess.step_recorded()
         info = sess.step()
+        profiling.host_read("serve.hmc_step", 3)
         return {
             "accepted": bool(info.accepted),
             "divergent": bool(info.divergent),
@@ -457,19 +478,20 @@ def serve(port: int = 8700, host: str = "127.0.0.1",
 
     class Handler(BaseHTTPRequestHandler):
         def do_POST(self):  # noqa: N802 (stdlib API)
-            try:
-                n = int(self.headers.get("Content-Length", 0))
-                req = json.loads(self.rfile.read(n) or b"{}")
-                out = svc.handle(req)
-            except json.JSONDecodeError as e:
-                out = {"error": {"code": -32700, "message": f"parse: {e}"}}
-            body = json.dumps(out).encode()
-            self.send_response(200)
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(body)))
-            self.send_header("Access-Control-Allow-Origin", "*")
-            self.end_headers()
-            self.wfile.write(body)
+            with profiling.span("serve.request", request=profiling.new_request_id()):
+                try:
+                    n = int(self.headers.get("Content-Length", 0))
+                    req = json.loads(self.rfile.read(n) or b"{}")
+                    out = svc.handle(req)
+                except json.JSONDecodeError as e:
+                    out = {"error": {"code": -32700, "message": f"parse: {e}"}}
+                body = json.dumps(out).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.send_header("Access-Control-Allow-Origin", "*")
+                self.end_headers()
+                self.wfile.write(body)
 
         def log_message(self, *a):  # quiet
             pass

@@ -31,6 +31,8 @@ parameters sample and score inside a model run on the card. The JSON-RPC
 service runs on the card by default (its MH session reads back once per
 ``mh.step`` request, its SMC and particle filter launch the SMC kernels),
 and a DSL index past the end of an array clamps on the card as on the CPU.
+A traced ``hmc_chain`` call records one program ``potential`` span per
+batched gradient, on the profiler's clock (``utils.profiling``).
 Dense-mass HMC (bench.py's scale_densemass model at d = 8) takes the same
 transition and the same short chain on the card as on the CPU from the same
 draws, and the 128-group plate's model (at 8 groups) gives the CPU's
@@ -760,6 +762,83 @@ def test_device_trace_is_primed_and_holds_the_block(tmp_path):
     assert 1 <= primed <= PRIMING_KERNELS
     assert sorted(n.split("<")[0].split("::")[-1] for n in kernels
                   if not is_priming_kernel(n)) == ["lse_finish", "lse_partial"]
+
+
+def test_device_trace_places_program_spans_on_its_time_base(tmp_path):
+    """A program span around an exp and a sum in a ``device_trace`` on the
+    card: in the written trace their kernels' launches lie inside the span,
+    on the launching thread."""
+    import json
+
+    from fugue_tpu_torch.utils import profiling
+
+    x = torch.randn(1 << 20, device="cuda")
+    torch.exp(x).sum()
+    with profiling.device_trace(str(tmp_path)):
+        with profiling.span("potential"):
+            torch.exp(x).sum()
+    (path,) = tmp_path.glob("trace_*.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    (span,) = [e for e in events if e.get("cat") == "program"]
+    inside = [e for e in events if e.get("cat") == "cuda_runtime"
+              and "LaunchKernel" in e.get("name", "")
+              and span["ts"] <= e["ts"] <= span["ts"] + span["dur"]]
+    assert len(inside) >= 2 and all(e["tid"] == span["tid"] for e in inside)
+
+
+def test_traced_hmc_call_records_one_potential_span_per_gradient(monkeypatch):
+    """A resumed hmc_chain call under torch.profiler on the card: one
+    program ``potential`` span per ``record_function`` range around the
+    same batched gradient, each span inside its range on the profiler's
+    clock, and every kernel of the call that launched inside a range
+    launched inside a span; its one named host read."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from fugue_tpu_torch.utils import profiling
+    from fugue_tpu_torch.utils.profiling import prime_session
+
+    staged = ftt.stage(eight_schools_model("cuda"), device="cuda")
+    cfg = ftt.HMCConfig(n_leapfrog=8)
+    first = ftt.hmc_chain(1, staged=staged, n_chains=64, n_samples=1, n_warmup=10, config=cfg)
+    real = hmc.batched_force
+
+    def ranged(potential_fn):
+        force = real(potential_fn)
+
+        def call(q):
+            with record_function("pb.potential"):
+                return force(q)
+
+        return call
+
+    monkeypatch.setattr(hmc, "batched_force", ranged)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prime_session()
+        t0 = time.time_ns()
+        ftt.hmc_chain(2, staged=staged, n_chains=64, n_samples=2, n_warmup=0, config=cfg,
+                      resume=first)
+        torch.cuda.synchronize()
+        t1 = time.time_ns()
+    events = list(prof.profiler.kineto_results.events())
+    ranges = sorted((e.start_ns(), e.end_ns()) for e in events
+                    if e.name() == "pb.potential" and e.device_type() == DeviceType.CPU)
+    recs = profiling.records(t0, t1)
+    spans = sorted((r.start, r.end) for r in recs
+                   if isinstance(r, profiling.Span) and r.name == "potential")
+    assert len(spans) == len(ranges) == 2 * (8 + 1)
+    for (s0, s1), (r0, r1) in zip(spans, ranges):
+        assert r0 <= s0 <= s1 <= r1
+    launches = [e.start_ns() for e in events if e.device_type() == DeviceType.CPU
+                and "cudaLaunchKernel" in e.name()]
+    inside = [t for t in launches if any(r0 <= t <= r1 for r0, r1 in ranges)]
+    assert len(inside) >= len(ranges)
+    assert all(any(s0 <= t <= s1 for s0, s1 in spans) for t in inside)
+    reads = [r for r in recs if isinstance(r, profiling.Count) and r.name == "host_read"]
+    assert [r.attrs["site"] for r in reads] == ["hmc_chain.step_size"]
 
 
 def test_dense_mass_hmc_on_cuda_equals_cpu(monkeypatch):

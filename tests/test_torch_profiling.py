@@ -1,15 +1,15 @@
 """The PyTorch port's profiling helpers (``fugue_tpu_torch/utils/profiling.py``)
 on the CPU, as ``tests/test_profiling.py`` holds the JAX package's: the
-first call timed apart from the steady state, the FLOP count of a matmul,
-and a trace file written by ``device_trace``. The same calls on the card
-(a CUDA trace naming the SMC kernels) are in ``chip_smoke.py``'s
-``serve_pf`` phase."""
+first call timed apart from the steady state, and a trace file written by
+``device_trace`` (the program's spans in it: ``tests/test_torch_tracing.py``).
+The same calls on the card (a CUDA trace naming the SMC kernels) are in
+``chip_smoke.py``'s ``serve_pf`` phase."""
 
 import json
 
 import torch
 
-from fugue_tpu_torch.utils.profiling import Timing, cost_summary, device_trace, time_jit
+from fugue_tpu_torch.utils.profiling import Timing, device_trace, time_jit
 
 
 def test_time_jit_separates_first_call_from_steady_state():
@@ -23,12 +23,6 @@ def test_time_jit_separates_first_call_from_steady_state():
     assert isinstance(t, Timing) and t.reps == 5 and len(calls) == 6
     assert t.compile_s > 0 and t.mean_s >= 0 and t.std_s >= 0
     assert "Timing(" in repr(t)
-
-
-def test_cost_summary_reports_matmul_flops():
-    a, b = torch.ones((32, 64)), torch.ones((64, 16))
-    c = cost_summary(lambda x, y: x @ y, a, b)
-    assert c["flops"] >= 2 * 32 * 64 * 16
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):
