@@ -19,6 +19,11 @@ How it is expressed in PyTorch:
 - Noise is drawn outside the deterministic step: ``hmc_transition`` takes
   the momenta ``p`` and the log-uniforms ``log_u`` as arguments, and the
   drive draws them from an explicit ``torch.Generator`` on the device.
+- On a CUDA device ``make_hmc_drive`` replays that step, the staged
+  potential's L+1 gradients with the leapfrogs and the accept test, as one
+  CUDA graph per staged model and shape (``TransitionGraphs``; counts
+  ``hmc.graph_replay``, ``hmc.graph_capture``, ``hmc.graph_fallback``).
+  A replay opens no ``potential`` span.
 - The leapfrog loop and the per-transition adaptation read nothing back to
   the host: step sizes, acceptance statistics and moments stay on the
   device, and host-side counters (dual-averaging step, Welford count) are
@@ -39,9 +44,12 @@ kernel (``parallel/``).
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import math
+import threading
 from dataclasses import dataclass, replace
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 from torch.func import grad_and_value, vmap
@@ -443,6 +451,135 @@ def hmc_transition(
 
 
 # ---------------------------------------------------------------------------
+# One transition as a CUDA graph
+# ---------------------------------------------------------------------------
+
+# Captured transitions kept per staged model; the least recently used goes.
+GRAPHS_PER_MODEL = 4
+
+
+def graph_engages(q, force_fn, discrete) -> bool:
+    """Whether ``make_hmc_drive`` replays its transitions from a CUDA graph:
+    the positions are on a CUDA device and the force is the staged
+    potential's own. A ``force_fn`` or an explicit ``discrete`` may close
+    over tensors of one call (Gibbs's values, tempering's β, SBC's data),
+    whose addresses a replay in a later call would read stale."""
+    return q.is_cuda and force_fn is None and discrete is None
+
+
+def graph_key(q, eps, inv_mass, n_leapfrog: int, max_delta_energy: float) -> tuple:
+    """What a captured transition is specific to, all of it seen in the
+    drive's inputs: device, dtype, (n_chains, d), L, the shapes of ε and of
+    the mass (diagonal, dense, per chain), and the divergence threshold."""
+    return (q.device, q.dtype, tuple(q.shape), int(n_leapfrog), tuple(eps.shape),
+            tuple(inv_mass.shape), float(max_delta_energy))
+
+
+class _Captured(NamedTuple):
+    graph: Any  # torch.cuda.CUDAGraph
+    inputs: tuple  # (q, p, log_u, eps, inv_mass), copied into before each replay
+    outputs: tuple  # (q_out, HmcStepInfo), rewritten by each replay
+
+
+class TransitionGraphs:
+    """A staged model's captured ``hmc_transition`` (its own batched force)
+    by ``graph_key``, at most ``GRAPHS_PER_MODEL``, the least recently used
+    evicted first. A capture that raises sets ``failed``, and the model's
+    drives stay eager from then on. One drive at a time holds ``lock``
+    (``claimed``).
+
+    A replay runs what the capture recorded: the potential has to be a
+    function of z and of the tensors the model holds, whose contents (not
+    whose Python objects) may change between calls."""
+
+    def __init__(self):
+        self.entries = collections.OrderedDict()
+        self.failed = False
+        self.lock = threading.Lock()
+
+    def get(self, key):
+        entry = self.entries.get(key)
+        if entry is not None:
+            self.entries.move_to_end(key)
+        return entry
+
+    def put(self, key, entry) -> None:
+        self.entries[key] = entry
+        self.entries.move_to_end(key)
+        while len(self.entries) > GRAPHS_PER_MODEL:
+            self.entries.popitem(last=False)
+
+    def transition(self, potential_fn, q, p, log_u, eps, n_leapfrog: int, inv_mass,
+                   max_delta_energy: float):
+        """``hmc_transition(potential_fn, ...)``, replayed from the graph of
+        these inputs' key; the first call for a key runs eagerly, then
+        captures. A replay's outputs are the graph's own tensors, which the
+        next replay rewrites."""
+        args = (q, p, log_u, eps, inv_mass)
+        key = graph_key(q, eps, inv_mass, n_leapfrog, max_delta_energy)
+        entry = self.get(key)
+        if entry is None:
+            return self._first(key, potential_fn, args, n_leapfrog, max_delta_energy)
+        for buf, x in zip(entry.inputs, args):
+            buf.copy_(x)
+        entry.graph.replay()
+        profiling.count("hmc.graph_replay")
+        return entry.outputs
+
+    def _first(self, key, potential_fn, args, n_leapfrog, max_delta_energy):
+        """The eager transition, on a side stream (the warm-up that capture
+        wants), then the capture of the same call on static inputs."""
+
+        def run(q, p, log_u, eps, inv_mass):
+            return hmc_transition(potential_fn, q, p, log_u, eps, n_leapfrog, inv_mass,
+                                  max_delta_energy)
+
+        dev = args[0].device
+        current, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            q_out, info = run(*args)
+        current.wait_stream(side)
+        for t in (q_out, *vars(info).values()):
+            t.record_stream(current)
+        inputs = tuple(torch.empty(x.shape, dtype=x.dtype, device=dev) for x in args)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    outputs = run(*inputs)
+                finally:
+                    graph.capture_end()
+        except RuntimeError:  # e.g. a host read or a pageable upload in the potential
+            self.failed = True
+            profiling.count("hmc.graph_fallback")
+        else:
+            self.put(key, _Captured(graph, inputs, outputs))
+            profiling.count("hmc.graph_capture")
+        return q_out, info
+
+
+def transition_graphs(staged: StagedModel) -> TransitionGraphs:
+    """The staged model's ``TransitionGraphs``, made on first use."""
+    return staged.__dict__.setdefault("hmc_transition_graphs", TransitionGraphs())
+
+
+@contextlib.contextmanager
+def claimed(graphs: Optional[TransitionGraphs]):
+    """``graphs`` for the block, or None where there are none, a capture
+    failed, or another drive holds them (that drive's replays would rewrite
+    the outputs this one reads)."""
+    if graphs is None or graphs.failed or not graphs.lock.acquire(blocking=False):
+        yield None
+        return
+    try:
+        yield graphs
+    finally:
+        graphs.lock.release()
+
+
+# ---------------------------------------------------------------------------
 # Reasonable epsilon (Hoffman & Gelman Alg 4)
 # ---------------------------------------------------------------------------
 
@@ -648,6 +785,12 @@ def make_hmc_drive(
     Sampling then runs at the averaged step size. ``qs`` is (n_samples, C,
     d); ``ljs``, ``aps`` and ``divs`` are (n_samples, C). ``eps_over`` and
     ``inv_mass_over`` replace the initial step size and mass (resume).
+
+    Where ``graph_engages`` (CUDA positions, the staged potential's own
+    force), a transition after the noise is a replay of one CUDA graph,
+    captured once per staged model and ``graph_key`` and kept on the model
+    (``transition_graphs``) for later drives and calls: the same kernels on
+    the same inputs. The noise, the adaptation and the rescue stay eager.
     """
     d = staged.dim
     L = config.n_leapfrog
@@ -656,13 +799,17 @@ def make_hmc_drive(
     def potential(z):
         return staged.potential(z, discrete)
 
-    if force_fn is None:
-        force_fn = batched_force(potential)
+    force = force_fn if force_fn is not None else batched_force(potential)
     if per_chain and chain_group is not None:
         raise ValueError("per_chain adaptation has no cross-rank statistics")
     chains = n_chains if per_chain else None
 
     def drive(q0, generator: torch.Generator, eps_over=None, inv_mass_over=None):
+        engages = graph_engages(q0, force_fn, discrete)
+        with claimed(transition_graphs(staged) if engages else None) as graphs:
+            return run(q0, generator, graphs, eps_over, inv_mass_over)
+
+    def run(q0, generator, graphs, eps_over, inv_mass_over):
         dt, dev = q0.dtype, q0.device
         if inv_mass_over is None:
             im0 = identity_mass(d, dense, dtype=dt, device=dev, chains=chains)
@@ -676,7 +823,7 @@ def make_hmc_drive(
             eps0 = torch.as_tensor(eps, dtype=dt, device=dev).expand(n_chains).clone()
         else:
             p = mass_draw_momentum(generator, im0, q0.shape)
-            eps0 = find_reasonable_epsilon_per_chain(force_fn, q0, p, im0)
+            eps0 = find_reasonable_epsilon_per_chain(force, q0, p, im0)
 
         def uniform(shape):
             return torch.rand(shape, generator=generator, device=dev, dtype=dt)
@@ -686,8 +833,11 @@ def make_hmc_drive(
             log_u = torch.log1p(-uniform((n_chains,)))  # log U, U in (0, 1]
             if config.jitter > 0:
                 eps = eps * (1.0 - config.jitter * uniform((n_chains,)))
+            if graphs is not None and not graphs.failed:
+                return graphs.transition(potential, q, p, log_u, eps, L, inv_mass,
+                                         config.max_delta_energy)
             return hmc_transition(potential, q, p, log_u, eps, L, inv_mass,
-                                  config.max_delta_energy, force_fn=force_fn)
+                                  config.max_delta_energy, force_fn=force)
 
         def warm_window(q, da, inv_mass, n_steps):
             welford = WelfordState.init(d, dense, dtype=dt, device=dev, chains=chains)
@@ -743,6 +893,8 @@ def make_hmc_drive(
                 ljs[i] = -info.potential
                 aps[i] = info.accept_prob
                 divs[i] = info.divergent
+        if graphs is not None:
+            q = q.clone()  # the graph's output, which the next replay rewrites
         return q, qs, ljs, aps, divs, eps_final, inv_mass
 
     return drive

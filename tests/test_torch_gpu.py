@@ -37,6 +37,12 @@ Dense-mass HMC (bench.py's scale_densemass model at d = 8) takes the same
 transition and the same short chain on the card as on the CPU from the same
 draws, and the 128-group plate's model (at 8 groups) gives the CPU's
 batched gradient on the card in float64, with no host sync.
+``hmc_chain``'s transitions replayed from the drive's CUDA graph equal the
+eager drive's bitwise in float32 with a diagonal mass; with a dense mass
+cuBLAS takes another GEMM under capture, and a replayed transition is held
+to the eager one to 1e-6; a resumed call replays without capturing;
+explicit discrete values, or a potential that reads the host, keep the
+drive eager.
 """
 
 import math
@@ -787,11 +793,13 @@ def test_device_trace_places_program_spans_on_its_time_base(tmp_path):
 
 
 def test_traced_hmc_call_records_one_potential_span_per_gradient(monkeypatch):
-    """A resumed hmc_chain call under torch.profiler on the card: one
-    program ``potential`` span per ``record_function`` range around the
-    same batched gradient, each span inside its range on the profiler's
-    clock, and every kernel of the call that launched inside a range
-    launched inside a span; its one named host read."""
+    """A resumed hmc_chain call on the eager path under torch.profiler on the
+    card: one program ``potential`` span per ``record_function`` range
+    around the same batched gradient, each span inside its range on the
+    profiler's clock, and every kernel of the call that launched inside a
+    range launched inside a span; its one named host read. (A transition
+    replayed from the drive's CUDA graph opens no span: the graph is
+    switched off here.)"""
     import time
 
     from torch.autograd import DeviceType
@@ -800,6 +808,7 @@ def test_traced_hmc_call_records_one_potential_span_per_gradient(monkeypatch):
     from fugue_tpu_torch.utils import profiling
     from fugue_tpu_torch.utils.profiling import prime_session
 
+    monkeypatch.setattr(hmc, "graph_engages", lambda q, force_fn, discrete: False)
     staged = ftt.stage(eight_schools_model("cuda"), device="cuda")
     cfg = ftt.HMCConfig(n_leapfrog=8)
     first = ftt.hmc_chain(1, staged=staged, n_chains=64, n_samples=1, n_warmup=10, config=cfg)
@@ -891,3 +900,132 @@ def test_group_plate_gradient_on_cuda_equals_cpu():
     assert _host_syncs(lambda: force(qd)) == 0
     for got, want in zip(out["cuda"], out["cpu"]):
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **TOL)
+
+
+def _graph_counts(fn):
+    """(fn(), the ``hmc.graph_*`` counts it made), recorded under a profiler
+    session."""
+    import collections
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from fugue_tpu_torch.utils import profiling
+
+    torch.cuda.synchronize()
+    t0 = time.time_ns()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn()
+        torch.cuda.synchronize()
+    counts = collections.Counter()
+    for r in profiling.records(t0, time.time_ns()):
+        if isinstance(r, profiling.Count) and r.name.startswith("hmc.graph_"):
+            counts[r.name] += r.n
+    return out, dict(counts)
+
+
+def _fresh_and_resumed(model, cfg, **kw):
+    """A fresh hmc_chain call (64 chains, 10 warmup, 10 samples) and one
+    resumed call (10 samples) on a newly staged model: ((results), (the
+    calls' graph counts))."""
+    staged = ftt.stage(model, device="cuda")
+    first, c1 = _graph_counts(lambda: ftt.hmc_chain(1, staged=staged, n_chains=64, n_samples=10,
+                                                    n_warmup=10, config=cfg, **kw))
+    second, c2 = _graph_counts(lambda: ftt.hmc_chain(2, staged=staged, n_chains=64,
+                                                     n_samples=10, n_warmup=0, config=cfg,
+                                                     resume=first, **kw))
+    return (first, second), (c1, c2)
+
+
+def _assert_same_chains(got, want):
+    for g, w in zip(got, want):
+        for field in ("positions", "final_positions", "log_joint", "accept_prob",
+                      "divergences", "inv_mass"):
+            assert torch.equal(getattr(g, field), getattr(w, field)), field
+        assert g.step_size == w.step_size
+
+
+def test_hmc_chain_replays_its_captured_transition_as_the_eager_drive_runs(monkeypatch):
+    """Eight-schools in float32 (the benchmark's precision), L = 8, diagonal
+    mass: with the graph, the fresh call captures once (its first transition
+    runs eagerly) and replays the other 19 transitions, the resumed call
+    replays all 10 and captures nothing; positions, accept probabilities,
+    divergences, step size and mass equal the eager drive's bitwise."""
+    settings.enable_x64(False)
+    cfg = ftt.HMCConfig(n_leapfrog=8)
+    graph, counts = _fresh_and_resumed(eight_schools_model("cuda"), cfg)
+    assert counts == ({"hmc.graph_capture": 1, "hmc.graph_replay": 19},
+                      {"hmc.graph_replay": 10})
+    monkeypatch.setattr(hmc, "graph_engages", lambda q, force_fn, discrete: False)
+    eager, eager_counts = _fresh_and_resumed(eight_schools_model("cuda"), cfg)
+    assert eager_counts == ({}, {})
+    _assert_same_chains(graph, eager)
+
+
+def test_dense_mass_hmc_chain_replays_its_captured_transition():
+    """Dense mass, float32: the calls capture and replay as with a diagonal
+    mass. Under capture cuBLAS takes another float32 GEMM for the dense
+    velocity p @ Sigma (a split-K SIMT kernel for the eager path's xmma
+    one), so one replayed transition is held to the eager transition from
+    the same inputs: the same accept decisions, positions to 1e-6, energies
+    to 1e-6 relative, accept probabilities to twice that error of the
+    largest energy."""
+    settings.enable_x64(False)
+    cfg = ftt.HMCConfig(n_leapfrog=8, mass="dense")
+    (first, second), counts = _fresh_and_resumed(eight_schools_model("cuda"), cfg)
+    assert counts == ({"hmc.graph_capture": 1, "hmc.graph_replay": 19},
+                      {"hmc.graph_replay": 10})
+    assert second.inv_mass.shape == (10, 10) and bool(torch.isfinite(second.positions).all())
+
+    staged = ftt.stage(eight_schools_model("cuda"), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn(10, 10, generator=g, device="cuda")
+    sigma = a @ a.T / 10 + 0.5 * torch.eye(10, device="cuda")
+    q = 0.5 * torch.randn(64, 10, generator=g, device="cuda")
+    p = hmc.momentum_from_normal(sigma, torch.randn(64, 10, generator=g, device="cuda"))
+    log_u = torch.log(torch.rand(64, generator=g, device="cuda"))
+    eps = torch.full((64,), 0.1, device="cuda")
+    args = (staged.potential, q, p, log_u, eps, 8, sigma, 1000.0)
+    graphs = hmc.TransitionGraphs()
+    graphs.transition(*args)  # eager, then the capture
+    qg, ig = graphs.transition(*args)
+    qe, ie = hmc.hmc_transition(*args)
+    assert torch.equal(ig.accepted, ie.accepted) and torch.equal(ig.divergent, ie.divergent)
+    torch.testing.assert_close(qg, qe, rtol=0.0, atol=1e-6)
+    for field in ("energy", "potential"):
+        torch.testing.assert_close(getattr(ig, field), getattr(ie, field), rtol=1e-6, atol=0.0)
+    h_max = float(ie.energy.abs().max())
+    torch.testing.assert_close(ig.accept_prob, ie.accept_prob, rtol=0.0, atol=2e-6 * h_max)
+
+
+def test_hmc_chain_with_explicit_discrete_values_stays_eager():
+    """An explicit ``discrete`` may close over a call's own tensors, so the
+    drive does not capture it."""
+    settings.enable_x64(False)
+    model = mixed_discrete_model("cuda")
+    heads = {"heads": torch.tensor(True, device="cuda")}
+    (res, _), counts = _fresh_and_resumed(model, ftt.HMCConfig(n_leapfrog=8), discrete=heads)
+    assert counts == ({}, {}) and res.positions.is_cuda
+
+
+def test_a_potential_that_reads_the_host_falls_back_to_the_eager_drive(monkeypatch):
+    """A model whose potential reads a device value back to the host cannot
+    be captured: the first call counts one fallback and runs eagerly, later
+    calls on the model do not try again, and the chains equal the eager
+    drive's."""
+    settings.enable_x64(False)
+    y = torch.tensor([28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0], device="cuda")
+    sigma = torch.tensor([15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0], device="cuda")
+
+    def reads_the_host():
+        mu = ftt.sample("mu", ftt.Normal(0.0, float(sigma.max()) / 3.6))
+        tau = ftt.sample("tau", ftt.LogNormal(0.5, 1.0))
+        theta_raw = ftt.sample("theta_raw", ftt.Normal(0.0, 1.0), sample_shape=(8,))
+        ftt.observe("y", ftt.Normal(mu + tau * theta_raw, sigma), y)
+
+    cfg = ftt.HMCConfig(n_leapfrog=8)
+    fell_back, counts = _fresh_and_resumed(reads_the_host, cfg)
+    assert counts == ({"hmc.graph_fallback": 1}, {})
+    monkeypatch.setattr(hmc, "graph_engages", lambda q, force_fn, discrete: False)
+    eager, _ = _fresh_and_resumed(reads_the_host, cfg)
+    _assert_same_chains(fell_back, eager)

@@ -469,3 +469,27 @@ def test_serve_idle_outside_method_share_reader(monkeypatch):
             _span("serve.request", 0, 99, 3)]
     run = _run(recs, workload="eight_schools_nc.serve", ops=ops, monkeypatch=monkeypatch)
     assert _read("serve.idle_outside_method_share", run) == pytest.approx(50.0)
+
+
+def test_hmc_graph_replay_share_reader(monkeypatch):
+    recs = [Count("hmc.graph_replay", W0 + 5, 1, 1, {}),
+            Count("hmc.graph_replay", W0 + 6, 1, 1, {}),
+            Count("hmc.graph_capture", W0 + 7, 1, 1, {}),
+            Count("hmc.graph_replay", W0 - 1, 1, 1, {}),
+            Count("host_read", W0 + 8, 1, 1, {"site": "a"})]
+    run = _run(recs, transitions=4, monkeypatch=monkeypatch)
+    assert _read("hmc.graph_replay_share", run) == pytest.approx(50.0)
+    eager = _run([Count("host_read", W0 + 8, 1, 1, {"site": "a"})], transitions=4,
+                 monkeypatch=monkeypatch)
+    assert _read("hmc.graph_replay_share", eager) == 0.0
+    assert _read("hmc.graph_replay_share", _run([], monkeypatch=monkeypatch)) is None
+    assert _read("hmc.graph_replay_share", SimpleNamespace(trace=None, counters={})) is None
+
+
+def test_hmc_graph_replay_share_reader_is_silent_on_a_program_without_the_graph(monkeypatch):
+    from fugue_tpu_torch.inference import hmc
+
+    monkeypatch.delattr(hmc, "TransitionGraphs")
+    run = _run([Count("hmc.graph_replay", W0 + 5, 1, 1, {})], transitions=2,
+               monkeypatch=monkeypatch)
+    assert _read("hmc.graph_replay_share", run) is None
