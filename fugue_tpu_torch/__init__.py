@@ -82,6 +82,7 @@ from .core.distributions import (
     InverseGamma,
     NegativeBinomial,
     Laplace,
+    Ordered,
     LogNormal,
     Normal,
     Poisson,

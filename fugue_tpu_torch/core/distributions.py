@@ -65,14 +65,14 @@ class Support:
     the MH proposal."""
 
     kind: str  # real | positive | unit | interval | boolean | count |
-    #            int_range | categorical | simplex
+    #            int_range | categorical | simplex | ordered
     low: Optional[float] = None
     high: Optional[float] = None
-    size: Optional[int] = None  # number of categories for categorical
+    size: Optional[int] = None  # categories (categorical), components (simplex, ordered)
 
     @property
     def is_continuous(self) -> bool:
-        return self.kind in ("real", "positive", "unit", "interval", "simplex")
+        return self.kind in ("real", "positive", "unit", "interval", "simplex", "ordered")
 
     @property
     def is_discrete(self) -> bool:
@@ -101,6 +101,11 @@ def categorical_support(k: int) -> Support:
 def simplex_support(k: int) -> Support:
     """Interior of the (k-1)-simplex: x_i > 0, Σx_i = 1 (k components)."""
     return Support("simplex", low=0.0, high=1.0, size=k)
+
+
+def ordered_support(k: int) -> Support:
+    """Strictly increasing vectors of R^k: x_1 < x_2 < ... < x_k."""
+    return Support("ordered", size=k)
 
 
 # ---------------------------------------------------------------------------
@@ -1063,6 +1068,55 @@ class MultivariateNormal(Distribution):
         y = torch.linalg.solve_triangular(L, diff[..., None], upper=False)[..., 0]
         half_logdet = torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
         return -0.5 * torch.sum(y * y, dim=-1) - half_logdet - 0.5 * self.event_size * _LOG_2PI
+
+
+class Ordered(Distribution):
+    """Ordered(base, k): ``k`` iid draws of a scalar distribution on the
+    real line, sorted; event shape ``(k,)``, support the increasing vectors
+    of R^k. The density on that region is k!·Π_j p(x_j), the density of
+    the order statistics, so the model stays normalised (Stan's
+    ``ordered[k] x; x ~ base`` without its dropped constant). Its transform
+    is ``transforms.Ordered``: x_1 = z_1, x_j = x_{j-1} + exp(z_j)."""
+
+    def __init__(self, base: Distribution, k: int):
+        if not isinstance(base, Distribution) or base.support.kind != "real":
+            raise ValidationError(ErrorCode.INVALID_SHAPE,
+                                  "Ordered takes a distribution on the real line",
+                                  {"base": repr(base)})
+        if tuple(base._batch_shape()) != ():
+            raise ValidationError(ErrorCode.INVALID_SHAPE,
+                                  "Ordered takes a base with scalar parameters",
+                                  {"batch_shape": tuple(base._batch_shape())})
+        if int(k) < 2:
+            raise ValidationError(ErrorCode.INVALID_SHAPE, "Ordered needs k >= 2", {"k": k})
+        self.base = base
+        self.support = ordered_support(int(k))
+        self._log_k_factorial = math.lgamma(int(k) + 1.0)
+
+    def _params(self):
+        return self.base._params()
+
+    def unconstraining_transform(self):
+        from .transforms import Ordered as OrderedTransform
+
+        return OrderedTransform(self.support.size)
+
+    def _batch_shape(self):
+        return ()
+
+    @property
+    def event_size(self) -> int:
+        return self.support.size
+
+    def sample(self, generator, sample_shape=()):
+        x = self.base.sample(generator, tuple(sample_shape) + (self.event_size,))
+        return torch.sort(x, dim=-1).values
+
+    def log_prob(self, value):
+        x = self._real(value)
+        inside = torch.all(x[..., 1:] > x[..., :-1], dim=-1)
+        lp = self._log_k_factorial + torch.sum(self.base.log_prob(x), dim=-1)
+        return _where_inside(inside, lp)
 
 
 MULTIVARIATE_DISTRIBUTIONS = [Dirichlet, MultivariateNormal]

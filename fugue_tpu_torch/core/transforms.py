@@ -150,6 +150,33 @@ class StickBreaking(Transform):
         return torch.sum(log_u + log_1mu + log_rem, dim=-1)
 
 
+class Ordered(Transform):
+    """R^k → increasing vectors of R^k, along the last axis: the bijector of
+    ``distributions.Ordered`` sites, Stan's ``ordered``. x_1 = z_1,
+    x_j = x_{j-1} + exp(z_j); log|J| = Σ_{j≥2} z_j (the Jacobian is
+    triangular with diagonal 1, exp(z_2), ..., exp(z_k))."""
+
+    name = "ordered"
+
+    def __init__(self, k: int):
+        self.k = int(k)
+
+    def unconstrained_shape(self, shape):
+        if not shape or shape[-1] != self.k:
+            raise ValueError(f"ordered expects trailing event axis {self.k}, got {shape}")
+        return tuple(shape)
+
+    def forward(self, z):
+        return torch.cat([z[..., :1], z[..., :1] + torch.cumsum(torch.exp(z[..., 1:]), dim=-1)],
+                         dim=-1)
+
+    def inverse(self, x):
+        return torch.cat([x[..., :1], torch.log(x[..., 1:] - x[..., :-1])], dim=-1)
+
+    def log_det_jacobian(self, z):
+        return torch.sum(z[..., 1:], dim=-1)
+
+
 def transform_for_support(support: Support) -> Transform:
     """The static, support-keyed transform. Distributions whose support
     depends on runtime parameters (``Uniform``) override
@@ -166,4 +193,6 @@ def transform_for_support(support: Support) -> Transform:
         return Identity()
     if support.kind == "simplex":
         return StickBreaking(support.size)
+    if support.kind == "ordered":
+        return Ordered(support.size)
     return Identity()

@@ -124,10 +124,10 @@ def sbc(
             {"discrete": [s.address for s in staged.discrete_sites]},
         )
     for s in staged.continuous_sites:
-        if s.support.kind == "simplex":
+        if s.support.kind in ("simplex", "ordered"):
             raise StagingError(
                 ErrorCode.NOT_STAGEABLE,
-                "simplex sites break coordinate-wise rank invariance",
+                f"{s.support.kind} sites break coordinate-wise rank invariance",
                 {"site": s.address},
             )
     missing = set(staged.observed_addresses) - set(data_template)

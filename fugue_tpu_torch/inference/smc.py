@@ -24,6 +24,13 @@ How it is expressed in PyTorch:
 - One ``torch.Generator`` on the device draws every random number after
   stage 0; its state is part of the carry (``SMCState``), so a run stopped
   at ``config.max_stages`` and resumed is bitwise the uninterrupted run.
+- While a profiler session runs (``utils.profiling``) a run records the
+  spans ``smc.run`` ⊃ ``smc.stage`` ⊃ ``smc.reweight`` (the β search and
+  the log-evidence increment), ``smc.resample`` (the ancestors and the
+  particles' gather) and ``smc.move`` (the rejuvenation and the new
+  likelihoods, with HMC's ``potential`` spans inside), one ``smc.stage``
+  count per stage, and its named host reads: ``smc.beta`` once per
+  stage, ``smc.result`` once per run, ``smc.resume_beta`` on a resume.
 
 With ``mesh=`` the particles split over the ranks of the mesh's chain
 axis, and every rank runs the ladder on its block:
@@ -58,6 +65,7 @@ from ..ops import kernels as K
 from ..ops.resampling import RESAMPLERS, effective_sample_size
 from ..parallel.mesh import CHAIN_AXIS, ShardLayout, cross_mean, ring_exchange
 from ..runtime.staging import StagedModel, stage
+from ..utils import profiling
 from .hmc import hmc_transition
 from .mcmc_utils import AdaptationState, adapt_update
 from .mh import MHState, mh_step
@@ -205,15 +213,18 @@ def _particle_layout(mesh) -> ShardLayout:
 
 def _density_parts(staged: StagedModel) -> Callable:
     """Batched latents → (log prior (N,), log likelihood + factors (N,)) in
-    one batched model replay."""
+    one batched model replay. A likelihood that is undefined at a particle
+    (NaN: a prior draw can give a normal scale of exactly 0, where the
+    log-density is -inf + inf) scores -inf, outside the model's support, so
+    that one particle cannot turn every weight, β and log Z into NaN."""
     dt = settings.real_dtype()
 
     def parts(latents):
         p = staged.log_density_parts(latents)
         # a model without observations scores its likelihood as 0.0
+        ll = torch.as_tensor(p.log_likelihood + p.log_factors, dtype=dt, device=staged.device)
         return (torch.as_tensor(p.log_prior, dtype=dt, device=staged.device),
-                torch.as_tensor(p.log_likelihood + p.log_factors, dtype=dt,
-                                device=staged.device))
+                torch.where(torch.isnan(ll), -math.inf, ll))
 
     return vmap(parts)
 
@@ -304,36 +315,42 @@ def _ladder(staged, config, state: SMCState, beta_f: float, n, generator,
     latents, log_w, ll = state.particles, state.log_weights, state.log_likelihoods
     beta, log_z, adapt, stage_i = state.beta, state.log_evidence, state.adapt, state.stage
     while beta_f < 1.0 and stage_i < cap:
-        # the (N,) vectors, gathered so that every rank computes the same β,
-        # log Z and ancestors; the particles stay on their ranks
-        lwg = log_w if shard is None else shard.gather(log_w)
-        llg = ll if shard is None else shard.gather(ll)
-        beta_new = _next_beta(beta, lwg, llg, target_ess)
-        delta = beta_new - beta
-        # unbiased log-evidence increment under the current normalized
-        # weights: log Σ_i w̄_i exp(δ·ll_i)
-        log_wbar = lwg - K.plogsumexp(lwg)
-        log_z = log_z + K.plogsumexp(log_wbar + delta * llg)
-        lw_all = lwg + delta * llg
-        log_w = lw_all if shard is None else lw_all[shard.rows(log_w.shape[0])]
-        beta_f = float(beta_new)  # the one read of β per stage
-        if beta_f < 1.0:  # no terminal resample
-            idx = resampler(generator, lw_all)
-            if shard is None:
-                latents = {a: v[idx] for a, v in latents.items()}
-                rejuv_gen = generator
-            else:
-                idx = idx[shard.rows(log_w.shape[0])]
-                latents = _ring_gather(latents, idx, shard)
-                rejuv_gen = torch.Generator(device=log_w.device).manual_seed(
-                    fold_seed(state.seed, 5, shard.seed_index, stage_i))
-            log_w = torch.zeros_like(log_w)
-            if config.rejuvenation_steps > 0:
-                latents, adapt = rejuvenate(staged, config, latents, adapt, beta_new,
-                                            rejuv_gen, group)
-                ll = loglik(latents)[1]
-            else:
-                ll = llg[idx]
+        with profiling.span("smc.stage"):
+            profiling.count("smc.stage")
+            with profiling.span("smc.reweight"):
+                # the (N,) vectors, gathered so that every rank computes the
+                # same β, log Z and ancestors; the particles stay on their ranks
+                lwg = log_w if shard is None else shard.gather(log_w)
+                llg = ll if shard is None else shard.gather(ll)
+                beta_new = _next_beta(beta, lwg, llg, target_ess)
+                delta = beta_new - beta
+                # unbiased log-evidence increment under the current normalized
+                # weights: log Σ_i w̄_i exp(δ·ll_i)
+                log_wbar = lwg - K.plogsumexp(lwg)
+                log_z = log_z + K.plogsumexp(log_wbar + delta * llg)
+                lw_all = lwg + delta * llg
+                log_w = lw_all if shard is None else lw_all[shard.rows(log_w.shape[0])]
+                beta_f = float(beta_new)  # the one read of β per stage
+                profiling.host_read("smc.beta")
+            if beta_f < 1.0:  # no terminal resample
+                with profiling.span("smc.resample"):
+                    idx = resampler(generator, lw_all)
+                    if shard is None:
+                        latents = {a: v[idx] for a, v in latents.items()}
+                        rejuv_gen = generator
+                    else:
+                        idx = idx[shard.rows(log_w.shape[0])]
+                        latents = _ring_gather(latents, idx, shard)
+                        rejuv_gen = torch.Generator(device=log_w.device).manual_seed(
+                            fold_seed(state.seed, 5, shard.seed_index, stage_i))
+                    log_w = torch.zeros_like(log_w)
+                with profiling.span("smc.move"):
+                    if config.rejuvenation_steps > 0:
+                        latents, adapt = rejuvenate(staged, config, latents, adapt, beta_new,
+                                                    rejuv_gen, group)
+                        ll = loglik(latents)[1]
+                    else:
+                        ll = llg[idx]
         beta, stage_i = beta_new, stage_i + 1
     return SMCState(latents, log_w, ll, beta, log_z, adapt, generator.get_state(), stage_i,
                     state.seed)
@@ -391,60 +408,64 @@ def adaptive_smc(
     ``mesh``: a ``DeviceMesh``; every rank calls this with the same
     arguments, the particles split over the mesh's chain axis, and every
     rank returns the global result (see the module docstring)."""
-    if staged is None:
-        staged = stage(model_fn, *model_args, device=device)
-    if config.rejuvenation not in _REJUVENATION:
-        raise ValueError(f"unknown rejuvenation {config.rejuvenation!r}; use 'mh' or 'hmc'")
-    if config.resampling not in RESAMPLERS:
-        raise ValueError(f"unknown resampling {config.resampling!r}; use one of {sorted(RESAMPLERS)}")
-    if config.rejuvenation == "hmc" and staged.discrete_sites:
-        raise ValueError("HMC rejuvenation requires continuous latents only; use "
-                         "rejuvenation='mh' for models with discrete sites")
-    n = int(n_particles)
-    shard = None if mesh is None else _particle_layout(mesh)
-    generator = torch.Generator(device=staged.device)
-    if resume is not None:
-        state = resume.state if isinstance(resume, SMCResult) else resume
-        if state is None:
-            raise ValueError("resume= needs an SMCResult carrying its state")
-        if state.log_weights.shape[0] != n:
-            raise ValueError(f"resume state holds {state.log_weights.shape[0]} particles; "
-                             f"this run is configured for {n}")
-        if (shard is None) != (state.seed is None):
-            raise ValueError("resume a sharded run with mesh=, an unsharded one without")
-        generator.set_state(state.generator_state)
-        beta_f = float(state.beta)
+    with profiling.span("smc.run"):
+        if staged is None:
+            staged = stage(model_fn, *model_args, device=device)
+        if config.rejuvenation not in _REJUVENATION:
+            raise ValueError(f"unknown rejuvenation {config.rejuvenation!r}; use 'mh' or 'hmc'")
+        if config.resampling not in RESAMPLERS:
+            raise ValueError(f"unknown resampling {config.resampling!r}; "
+                             f"use one of {sorted(RESAMPLERS)}")
+        if config.rejuvenation == "hmc" and staged.discrete_sites:
+            raise ValueError("HMC rejuvenation requires continuous latents only; use "
+                             "rejuvenation='mh' for models with discrete sites")
+        n = int(n_particles)
+        shard = None if mesh is None else _particle_layout(mesh)
+        generator = torch.Generator(device=staged.device)
+        if resume is not None:
+            state = resume.state if isinstance(resume, SMCResult) else resume
+            if state is None:
+                raise ValueError("resume= needs an SMCResult carrying its state")
+            if state.log_weights.shape[0] != n:
+                raise ValueError(f"resume state holds {state.log_weights.shape[0]} particles; "
+                                 f"this run is configured for {n}")
+            if (shard is None) != (state.seed is None):
+                raise ValueError("resume a sharded run with mesh=, an unsharded one without")
+            generator.set_state(state.generator_state)
+            beta_f = float(state.beta)
+            profiling.host_read("smc.resume_beta")
+            if shard is not None:
+                state = _local(state, shard)
+        else:
+            generator.manual_seed(int(seed))
+            n_init = n if shard is None else shard.split(n, "n_particles")
+            state = _init_state(staged, config, seed, n_init, generator, shard)
+            beta_f = 0.0
+
+        if config.rejuvenation_steps == 0 and config.ess_threshold <= 0.0:
+            state = _reweight(state, n, shard)
+        else:
+            state = _ladder(staged, config, state, beta_f, n, generator, shard)
         if shard is not None:
-            state = _local(state, shard)
-    else:
-        generator.manual_seed(int(seed))
-        n_init = n if shard is None else shard.split(n, "n_particles")
-        state = _init_state(staged, config, seed, n_init, generator, shard)
-        beta_f = 0.0
+            state = _global(state, shard)
 
-    if config.rejuvenation_steps == 0 and config.ess_threshold <= 0.0:
-        state = _reweight(state, n, shard)
-    else:
-        state = _ladder(staged, config, state, beta_f, n, generator, shard)
-    if shard is not None:
-        state = _global(state, shard)
-
-    log_w = state.log_weights
-    weights = torch.exp(log_w - K.plogsumexp(log_w))
-    # one transfer to the host for the scalar results
-    log_z, ess, beta = torch.stack(
-        [state.log_evidence, effective_sample_size(log_w), state.beta]).tolist()
-    return SMCResult(
-        particles=state.particles,
-        log_weights=log_w,
-        weights=weights,
-        log_evidence=log_z,
-        n_stages=state.stage,
-        ess=ess,
-        beta=beta,
-        converged=beta >= 1.0,
-        state=state,
-    )
+        log_w = state.log_weights
+        weights = torch.exp(log_w - K.plogsumexp(log_w))
+        # one transfer to the host for the scalar results
+        log_z, ess, beta = torch.stack(
+            [state.log_evidence, effective_sample_size(log_w), state.beta]).tolist()
+        profiling.host_read("smc.result")
+        return SMCResult(
+            particles=state.particles,
+            log_weights=log_w,
+            weights=weights,
+            log_evidence=log_z,
+            n_stages=state.stage,
+            ess=ess,
+            beta=beta,
+            converged=beta >= 1.0,
+            state=state,
+        )
 
 
 def importance_reweight(seed: int, n_particles: int, model_fn=None, *, staged=None,

@@ -1029,3 +1029,23 @@ def test_a_potential_that_reads_the_host_falls_back_to_the_eager_drive(monkeypat
     monkeypatch.setattr(hmc, "graph_engages", lambda q, force_fn, discrete: False)
     eager, _ = _fresh_and_resumed(reads_the_host, cfg)
     _assert_same_chains(fell_back, eager)
+
+
+def test_gmm_mixture_cell_at_its_size_is_correct_and_traced():
+    """The benchmark's ``gmm_mixture.smc`` cell at its size (131,072
+    particles, N = 1,000, float32, two whole runs in the window) through the
+    harness, traced: ``correct``, and every per-layer metric of the cell
+    read, the SMC kernels' roofline shares below 100%."""
+    from perfbench import harness
+
+    settings.enable_x64(False)
+    run = harness.new_run("gmm_mixture.smc", 2**33 + 11, 1.0, True,
+                          overrides={"reference_draws": 1 << 20})
+    out = harness.run_cell(run)
+    assert out["correct"], out["checks"]
+    names = [m["name"] for m in harness.benchmark()["per_layer"]
+             if harness.applies(m, "gmm_mixture.smc")]
+    assert len(names) == 8 and set(names) <= set(out["metrics"])
+    for name in ("smc.logsumexp_roofline", "smc.resample_roofline"):
+        assert 0.0 < out["metrics"][name]["value"] < 100.0
+    assert out["metrics"]["smc.host_reads_per_stage"]["value"] == 1.0

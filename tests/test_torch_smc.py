@@ -266,6 +266,34 @@ def test_hmc_rejuvenation():
     assert len(np.unique(res.particles["mu"].numpy().round(6))) > 700
 
 
+def _undefined_above(c=1.5, a=0.3):
+    """x ~ N(0, 1) with a factor exp(-(x - a)²/2) that is NaN above ``c``
+    (a likelihood undefined there), and the evidence and mean of the model
+    truncated at ``c``: the density is e^{-a²/4}·e^{-(x - a/2)²}/√(2π)."""
+    def model():
+        x = ftt.sample("x", ftt.Normal(0.0, 1.0))
+        ftt.factor(torch.where(x > c, torch.nan, -0.5 * (x - a) ** 2))
+
+    m, sd = a / 2.0, math.sqrt(0.5)
+    log_z = -a * a / 4.0 + math.log(st.norm.cdf((c - m) / sd)) - 0.5 * math.log(2.0)
+    mean = st.truncnorm.mean(-np.inf, (c - m) / sd, loc=m, scale=sd)
+    return model, log_z, mean
+
+
+@pytest.mark.parametrize("rejuvenation", ["mh", "hmc"])
+def test_particles_where_the_likelihood_is_nan_score_out(rejuvenation):
+    """A prior draw at which the likelihood is NaN (as a normal of scale
+    exactly 0 gives) weighs nothing, and the run stays finite: the
+    truncated model's evidence and mean."""
+    model, log_z, mean = _undefined_above()
+    cfg = ftt.SMCConfig(rejuvenation_steps=3, rejuvenation=rejuvenation, hmc_leapfrog=4)
+    res = ftt.adaptive_smc(11, 2048, model, cfg, device="cpu")
+    assert res.converged and math.isfinite(res.log_evidence)
+    assert float(res.particles["x"][res.weights > 0].max()) <= 1.5
+    assert res.log_evidence == pytest.approx(log_z, abs=0.1)
+    assert float(res.posterior_mean("x")) == pytest.approx(mean, abs=0.05)
+
+
 def test_importance_reweight_shortcut():
     _, tmodel, post_mean, _, exact = normal_pair()
     ts = _stage_cpu(tmodel)

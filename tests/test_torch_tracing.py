@@ -306,6 +306,50 @@ def test_a_chees_chain_reads_tau_once_per_transition():
     assert reads == {"chees_chain.trajectory_length": 1, "chees_chain.step_size": 1}
 
 
+def test_an_smc_run_nests_its_stages_moves_and_potentials():
+    """``smc.run`` ⊃ ``smc.stage`` ⊃ ``smc.reweight``, ``smc.resample`` and
+    ``smc.move`` ⊃ ``potential``; one ``smc.stage`` count and one
+    ``smc.beta`` read per stage, inside it; one ``smc.result`` read."""
+    staged = ftt.stage(normal_model, device="cpu")
+    cfg = ftt.SMCConfig(rejuvenation="hmc", rejuvenation_steps=2, hmc_leapfrog=3)
+    with _session():
+        res = ftt.adaptive_smc(3, 256, config=cfg, staged=staged)
+    recs = _everything()
+    n = res.n_stages
+    assert res.converged and n >= 2
+    (run,) = _spans(recs, "smc.run")
+    stages = _spans(recs, "smc.stage")
+    assert len(stages) == n and all(s.parent == run.id for s in stages)
+    assert sum(r.n for r in recs if isinstance(r, Count) and r.name == "smc.stage") == n
+    ids = {s.id for s in stages}
+    assert len(_spans(recs, "smc.reweight")) == n
+    for name in ("smc.reweight", "smc.resample", "smc.move"):
+        assert all(s.parent in ids for s in _spans(recs, name))
+    moves = _spans(recs, "smc.move")
+    assert len(moves) == len(_spans(recs, "smc.resample")) == n - 1
+    potentials = _spans(recs, "potential")
+    assert len(potentials) == (n - 1) * cfg.rejuvenation_steps * (cfg.hmc_leapfrog + 1)
+    assert {p.parent for p in potentials} == {m.id for m in moves}
+    assert _reads(recs) == {"smc.beta": n, "smc.result": 1}
+    beta_reads = [r for r in recs if isinstance(r, Count) and r.attrs.get("site") == "smc.beta"]
+    assert all(any(s.start <= r.time <= s.end for s in stages) for r in beta_reads)
+    for s in stages + moves + potentials:
+        assert run.start <= s.start <= s.end <= run.end
+    profiling.clear()
+    ftt.adaptive_smc(4, 256, config=cfg, staged=staged)
+    assert _everything() == []
+
+
+def test_a_resumed_smc_run_names_its_read_of_beta():
+    staged = ftt.stage(normal_model, device="cpu")
+    first = ftt.adaptive_smc(3, 128, config=ftt.SMCConfig(max_stages=1), staged=staged)
+    assert not first.converged
+    with _session():
+        res = ftt.adaptive_smc(3, 128, config=ftt.SMCConfig(), staged=staged, resume=first)
+    reads = _reads(_everything())
+    assert reads == {"smc.resume_beta": 1, "smc.beta": res.n_stages - 1, "smc.result": 1}
+
+
 def _service_spans(recs):
     return {name: _spans(recs, name) for name in
             ("serve.request", "serve.lock_wait", "serve.method", "serve.reply")}
@@ -493,3 +537,87 @@ def test_hmc_graph_replay_share_reader_is_silent_on_a_program_without_the_graph(
     run = _run([Count("hmc.graph_replay", W0 + 5, 1, 1, {})], transitions=2,
                monkeypatch=monkeypatch)
     assert _read("hmc.graph_replay_share", run) is None
+
+
+def _smc_run(recs, monkeypatch, ops=(), chains=1000):
+    run = _run(recs, workload="gmm_mixture.smc", ops=ops, monkeypatch=monkeypatch)
+    run.cell = {"chains": chains}
+    return run
+
+
+def _smc_stage(start_ms, end_ms, sid, run_id=1):
+    return _span("smc.stage", start_ms, end_ms, sid, parent=run_id)
+
+
+def test_smc_readers_return_none_without_program_records(monkeypatch):
+    run = _smc_run([], monkeypatch)
+    for m in ("smc.stages_per_run", "smc.host_ms_per_stage", "smc.host_reads_per_stage",
+              "smc.move_device_ms_per_grad", "smc.logsumexp_roofline",
+              "smc.resample_roofline"):
+        assert _read(m, run) is None
+        assert _read(m, SimpleNamespace(trace=None, counters={}, cell={})) is None
+
+
+def test_smc_stages_per_run_reader(monkeypatch):
+    recs = [_span("smc.run", 0, 50, 1), Count("smc.stage", W0 + 1, 1, 1, {}),
+            Count("smc.stage", W0 + 2, 1, 1, {}), Count("smc.stage", W0 + 3, 1, 1, {}),
+            _span("smc.run", 50, 90, 9), Count("smc.stage", W0 + 60_000_000, 1, 1, {})]
+    assert _read("smc.stages_per_run", _smc_run(recs, monkeypatch)) == pytest.approx(2.0)
+
+
+def test_smc_host_ms_per_stage_reader(monkeypatch):
+    # stage 2 (10 ms) holds a move with potentials of 2 + 3 ms; stage 5 (6 ms) none
+    recs = [_span("smc.run", 0, 40, 1), _smc_stage(0, 10, 2), _span("smc.move", 4, 10, 3, 2),
+            _span("potential", 4, 6, 4, 3), _span("potential", 6, 9, 6, 3),
+            _smc_stage(10, 16, 5), _span("potential", 20, 30, 7)]
+    assert _read("smc.host_ms_per_stage", _smc_run(recs, monkeypatch)) == pytest.approx(5.5)
+
+
+def test_smc_host_reads_per_stage_reader(monkeypatch):
+    ms = 1_000_000
+    recs = [_smc_stage(0, 10, 2), _smc_stage(10, 20, 3),
+            Count("host_read", W0 + 5 * ms, 1, 1, {"site": "smc.beta"}),
+            Count("host_read", W0 + 15 * ms, 1, 1, {"site": "smc.beta"}),
+            Count("host_read", W0 + 16 * ms, 2, 1, {"site": "x"}),
+            Count("host_read", W0 + 16 * ms, 1, 7, {"site": "another thread"}),
+            Count("host_read", W0 + 30 * ms, 1, 1, {"site": "smc.result"})]
+    assert _read("smc.host_reads_per_stage", _smc_run(recs, monkeypatch)) == pytest.approx(2.0)
+
+
+def test_smc_move_device_ms_per_grad_reader(monkeypatch):
+    ms = 1_000_000
+    recs = [_smc_stage(0, 40, 2), _span("smc.move", 10, 40, 3, 2),
+            _span("potential", 10, 20, 4, 3), _span("potential", 20, 30, 5, 3),
+            _span("potential", 50, 60, 6)]
+    ops = [DeviceOp("k", W0 + 12 * ms, W0 + 15 * ms, W0 + 11 * ms),
+           DeviceOp("k", W0 + 25 * ms, W0 + 26 * ms, W0 + 21 * ms),
+           DeviceOp("k", W0 + 31 * ms, W0 + 39 * ms, W0 + 31 * ms),
+           DeviceOp("k", W0 + 51 * ms, W0 + 59 * ms, W0 + 51 * ms)]
+    run = _smc_run(recs, monkeypatch, ops=ops)
+    assert _read("smc.move_device_ms_per_grad", run) == pytest.approx(2.0)
+
+
+def test_smc_roofline_readers(monkeypatch):
+    """Least bytes over the HBM rate over the kernels' device time: 2 calls
+    of each at N = 1,000 take 2 µs (logsumexp) and 4 µs (resample)."""
+    from perfbench.peaks import HBM_BYTES_PER_S
+
+    us = 1_000
+    names = {"lse_partial": "void (anonymous namespace)::lse_partial<float>(float const*, long, "
+                            "fugue_lse::Part*)",
+             "lse_finish": "void (anonymous namespace)::lse_finish<float>(fugue_lse::Part const*, "
+                           "long, float*)",
+             "lse_parts": "void (anonymous namespace)::lse_parts<float>(float const*, long, "
+                          "fugue_lse::Part*, unsigned long*, long, unsigned long long*)",
+             "emit": "void (anonymous namespace)::emit<float>(float const*, float const*, ...)"}
+    ops, t = [], W0
+    for name, dur in [("lse_partial", 0.7), ("lse_finish", 0.3)] * 2 + \
+            [("lse_parts", 0.5), ("emit", 1.5)] * 2 + [("elementwise_kernel", 9.0)]:
+        ops.append(DeviceOp(names.get(name, name), t, t + int(dur * us), t))
+        t += 10 * us
+    run = _smc_run([], monkeypatch, ops=ops, chains=1000)
+    lse = 100.0 * 2 * (4 * 1000 + 4) / HBM_BYTES_PER_S / 2e-6
+    resample = 100.0 * 2 * (12 * 1000) / HBM_BYTES_PER_S / 4e-6
+    assert _read("smc.logsumexp_roofline", run) == pytest.approx(lse)
+    assert _read("smc.resample_roofline", run) == pytest.approx(resample)
+    assert _read("device.idle_share.smc", run) == pytest.approx(100.0 * (1 - 15e-6 / 0.1))
