@@ -336,6 +336,7 @@ It needs a CUDA device and nvcc, and imports no JAX.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import math
@@ -904,11 +905,25 @@ def _check_plate(post, launches, model_runs, what):
           f"{what}: {launches['nll']} plate kernel calls for {model_runs} batched model runs")
 
 
+def graph_replays(staged):
+    """What the CUDA-graph replays of ``staged``'s drives ran, which neither
+    the model's run counter nor ``LAUNCHES`` sees: the sum of its graph
+    caches' ``replayed`` (batched gradients, kernel launches)."""
+    from fugue_tpu_torch.inference import hmc
+
+    total = collections.Counter()
+    for cache in vars(staged).values():
+        if isinstance(cache, hmc.GraphCache):
+            total += cache.replayed
+    return total
+
+
 def _plate_run(run, pass_runs=False):
     """``run(staged, y)`` on the plate model over y = plate_data at
     MAIN_SHAPE's rows, timed, with the kernel's launch counts and the
-    batched model runs set to 0 just before and read just after;
-    ``pass_runs``: ``run(staged, y, runs)`` with the model's run counter."""
+    batched model runs set to 0 just before and read just after, what graph
+    replays ran included (``graph_replays``); ``pass_runs``: ``run(staged,
+    y, runs)`` with the model's run counter."""
     import fugue_tpu_torch as ftt
 
     y = plate_data(MAIN_SHAPE[1])
@@ -920,7 +935,9 @@ def _plate_run(run, pass_runs=False):
     res = run(staged, y, model_runs) if pass_runs else run(staged, y)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return y, res, wall, read_launches(), model_runs[0]
+    replayed = graph_replays(staged)
+    launches = {k: n + replayed[k] for k, n in read_launches().items()}
+    return y, res, wall, launches, model_runs[0] + replayed["gradients"]
 
 
 def phase_gaussian_plate():
@@ -1758,7 +1775,10 @@ def phase_chees_plate():
     n_chains, n_warmup, n_samples = MAIN_SHAPE[0], 200, 200
     n = MAIN_SHAPE[1]
 
+    models = []
+
     def run(staged, y):
+        models.append(staged)
         y64 = y.double()
         z0 = torch.stack([y64.mean(), torch.log(y64.std(correction=0))]).float()
         return ftt.chees_chain(3, n_samples=n_samples, n_warmup=n_warmup,
@@ -1766,6 +1786,7 @@ def phase_chees_plate():
                                staged=staged, init_position=z0, init_jitter=0.01)
 
     y, res, wall, launches, model_runs = _plate_run(run)
+    replayed = graph_replays(models[0])
     post = _plate_posterior(res, y, n_chains, n_samples, "chees plate")
     n_transitions = n_warmup + n_samples
     stats = _chees_stats(res, n_chains, n_transitions, wall)
@@ -1774,10 +1795,14 @@ def phase_chees_plate():
           "init": "data moments + 0.01 jitter",
           "wall_s": wall, "rows_per_s": stats["grad_evals_per_s"] * n,
           "ess_per_s": post["ess_min"] / wall, "batched_model_runs": model_runs,
-          "launches": launches, **post, **stats})
+          "replayed_model_runs": replayed["gradients"], "launches": launches, **post, **stats})
     _check_plate(post, launches, model_runs, "chees plate")
-    # L + 1 batched runs per transition, besides the epsilon search and the
-    # final constrain pass
+    # the transitions after the first replay the model's ChEES graphs
+    check(replayed["gradients"] > n_transitions,
+          f"chees plate: {replayed['gradients']} model runs replayed in {n_transitions} "
+          "transitions")
+    # L + 1 batched runs per transition, besides the epsilon search, the
+    # captures and the final constrain pass
     check(model_runs > stats["batched_gradients"],
           f"chees plate: {model_runs} model runs for {stats['batched_gradients']} gradients")
     check(res.host_syncs == n_transitions,

@@ -31,6 +31,16 @@ How it is expressed in PyTorch:
   normals of the momenta and the accept log-uniforms, and the drive takes
   them from a draws object (``GeneratorDraws`` by default), the seam
   through which a test replays the JAX key schedule.
+- On a CUDA device the drive and ``CheesSession.step`` replay each
+  transition after its noise from three CUDA graphs per staged model and
+  shape (``ChEESGraphs``, keyed by ``graph_key``, never by L): the head
+  (momenta, U₀ and its gradient, K₀), one leapfrog step, replayed L times
+  in place, and the accept test. ε and the mass are device tensors copied
+  into the graphs' inputs, so sessions of one model with their own ε and
+  mass share the captures. Counts ``chees.graph_replay``,
+  ``chees.graph_capture``, ``chees.graph_fallback``; a replay opens no
+  ``potential`` span, and the cache's ``replayed`` counts the gradients and
+  kernel launches its replays ran.
 
 ``make_chees_drive(chain_group=...)`` is the sharded drive: the
 criterion's cross-chain means (``cmean``), the acceptance mean, the ε₀
@@ -40,9 +50,10 @@ and with them every transition's L, are the same on every rank.
 
 from __future__ import annotations
 
+import collections
 import math
 from dataclasses import dataclass, replace
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -52,17 +63,23 @@ from ..parallel.mesh import cross_mean
 from ..runtime.staging import StagedModel, stage
 from ..utils import profiling
 from .hmc import (
+    CaptureCounts,
     DualAveragingState,
+    GraphCache,
     WelfordState,
     batched_force,
+    claimed,
     constrain_positions,
+    cuda_recorder,
     draw_seed,
     dual_averaging_update,
     find_reasonable_epsilon,
+    graph_engages,
     leapfrog,
     mass_kinetic,
     mass_velocity,
     momentum_from_normal,
+    on_side_stream,
     start_positions,
     eps_consensus,
     welford_merge_across,
@@ -304,8 +321,51 @@ def oja_update(Q_out, u, z, inv_mass, decay, cmean=None):
 # ---------------------------------------------------------------------------
 
 
+def _trajectory_steps(eps, T, h, max_leapfrog: int) -> int:
+    """L = clip(ceil(τ), 1, max_leapfrog) for τ = h·T/ε (1 for a τ that is
+    not finite); τ is read back to the host when it is a tensor."""
+    tau = h * T / eps
+    if isinstance(tau, torch.Tensor):  # the transition's one host read
+        profiling.host_read("chees.tau")
+    tau = float(tau)
+    return min(max(math.ceil(tau), 1), max_leapfrog) if math.isfinite(tau) else 1
+
+
+def _head(force, Q, z, inv_mass):
+    """The momenta, U₀ with its gradient G₀, and K₀: (P, G₀, U₀, K₀)."""
+    P = momentum_from_normal(inv_mass, z)
+    G0, U0 = force(Q)
+    return P, G0, U0, mass_kinetic(inv_mass, P)
+
+
+def _tail(Q, Q_new, P_new, U0, K0, U1, inv_mass, log_u, max_delta_energy: float):
+    """The energy error, the divergence and accept tests, and the kept
+    point: (Q_out, accept_prob, accepted, divergent, U_out)."""
+    K1 = mass_kinetic(inv_mass, P_new)
+    delta = (U0 + K0) - (U1 + K1)
+    finite = torch.isfinite(delta) & torch.isfinite(U1)
+    divergent = (~finite) | (-delta > max_delta_energy)
+    accept_prob = torch.where(
+        divergent, 0.0, torch.clamp(torch.exp(torch.clamp(delta, max=50.0)), max=1.0))
+    accepted = (~divergent) & (log_u < delta)
+    Q_out = torch.where(accepted[:, None], Q_new, Q)
+    U_out = torch.where(accepted, U1, U0)
+    return Q_out, accept_prob, accepted, divergent, U_out
+
+
+def _eager_transition(potential_fn, Q, z, log_u, eps, inv_mass, L: int,
+                      max_delta_energy: float):
+    force = batched_force(potential_fn)
+    P, G0, U0, K0 = _head(force, Q, z, inv_mass)
+    Q_new, P_new, _, U1 = leapfrog(force, Q, P, eps, L, inv_mass, G0)
+    Q_out, accept_prob, accepted, divergent, U_out = _tail(Q, Q_new, P_new, U0, K0, U1,
+                                                           inv_mass, log_u, max_delta_energy)
+    return Q_out, Q_new, P_new, accept_prob, accepted, divergent, L, U_out
+
+
 def chees_transition(potential_fn: Callable, Q, z, log_u, eps, T, h, inv_mass,
-                     max_leapfrog: int, max_delta_energy: float = 1000.0):
+                     max_leapfrog: int, max_delta_energy: float = 1000.0, *,
+                     n_leapfrog: Optional[int] = None, graphs: Optional["ChEESGraphs"] = None):
     """One jittered fixed-length transition for the (C, d) batch ``Q``.
 
     ``z`` (C, d) standard normals become the momenta (``momentum_from_normal``),
@@ -313,31 +373,132 @@ def chees_transition(potential_fn: Callable, Q, z, log_u, eps, T, h, inv_mass,
     0-dim tensors or floats. τ = h·T/ε is read back to the host once (not
     at all when all three are floats), and every chain takes L =
     clip(ceil(τ), 1, max_leapfrog) leapfrog steps (L = 1 for a τ that is
-    not finite).
+    not finite). ``n_leapfrog``: L, where the caller has it on the host
+    already (τ is then not computed). ``graphs``: replay the transition
+    from these captures (``ChEESGraphs.transition``; ``eps`` a tensor).
 
     Returns ``(Q_out, Q_prop, P_end, accept_prob, accepted, divergent, L,
     U_out)``: L a host int, U_out the potential at ``Q_out``."""
     with profiling.span("chees.transition"):
-        tau = h * T / eps
-        if isinstance(tau, torch.Tensor):  # the transition's one host read
-            profiling.host_read("chees.tau")
-        tau = float(tau)
-        L = min(max(math.ceil(tau), 1), max_leapfrog) if math.isfinite(tau) else 1
-        P = momentum_from_normal(inv_mass, z)
-        force = batched_force(potential_fn)
-        G0, U0 = force(Q)
-        K0 = mass_kinetic(inv_mass, P)
-        Q_new, P_new, _, U1 = leapfrog(force, Q, P, eps, L, inv_mass, G0)
-        K1 = mass_kinetic(inv_mass, P_new)
-        delta = (U0 + K0) - (U1 + K1)
-        finite = torch.isfinite(delta) & torch.isfinite(U1)
-        divergent = (~finite) | (-delta > max_delta_energy)
-        accept_prob = torch.where(
-            divergent, 0.0, torch.clamp(torch.exp(torch.clamp(delta, max=50.0)), max=1.0))
-        accepted = (~divergent) & (log_u < delta)
-        Q_out = torch.where(accepted[:, None], Q_new, Q)
-        U_out = torch.where(accepted, U1, U0)
-        return Q_out, Q_new, P_new, accept_prob, accepted, divergent, L, U_out
+        L = n_leapfrog if n_leapfrog is not None else _trajectory_steps(eps, T, h, max_leapfrog)
+        args = (potential_fn, Q, z, log_u, eps, inv_mass, L, max_delta_energy)
+        if graphs is not None and not graphs.failed:
+            return graphs.transition(*args)
+        return _eager_transition(*args)
+
+
+# ---------------------------------------------------------------------------
+# The transition as CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def graph_key(Q, eps, inv_mass, max_delta_energy: float) -> tuple:
+    """What a captured ChEES transition is specific to, all of it seen in its
+    inputs: device, dtype, (n_chains, d), the shapes of ε and of the mass,
+    and the divergence threshold. Not L: the captured leapfrog step is
+    replayed L times."""
+    return (Q.device, Q.dtype, tuple(Q.shape), tuple(eps.shape), tuple(inv_mass.shape),
+            float(max_delta_energy))
+
+
+class _Pieces(NamedTuple):
+    """A captured transition: three graphs (``replay()``) over static tensors."""
+
+    inputs: tuple  # (Q, z, log_u, eps, inv_mass), copied into before each transition
+    head: Any  # writes q (a copy of Q), p, g, U₀ and K₀
+    step: Any  # one leapfrog step of (q, p, g, u), in place
+    tail: Any  # the accept test, from Q, q, p, u, U₀ and K₀
+    outputs: tuple  # (Q_out, q, p, accept_prob, accepted, divergent, U_out)
+    # (g, u, U₀, K₀): a graph holds no reference to the memory it reads and
+    # writes, which would otherwise go back to the allocator
+    kept: tuple
+    fixed: collections.Counter  # what the head's and the tail's captures counted
+    per_step: collections.Counter  # what the step's capture counted
+
+
+def record_pieces(record: Callable, potential_fn: Callable, inputs,
+                  max_delta_energy: float) -> _Pieces:
+    """The transition on the static ``inputs`` as three pieces, each made by
+    ``record(fn) → (graph, fn())``, whose replays run the eager transition's
+    kernels in its order: the head, L steps, the tail."""
+    Q, z, log_u, eps, inv_mass = inputs
+    counts = CaptureCounts(potential_fn)
+    force = batched_force(counts.potential)
+    head, (q, p, g, U0, K0) = counts.record(
+        record, lambda: (Q.clone(), *_head(force, Q, z, inv_mass)))
+    u = torch.empty_like(U0)
+
+    def one_step():
+        for buf, x in zip((q, p, g, u), leapfrog(force, q, p, eps, 1, inv_mass, g)):
+            buf.copy_(x)
+
+    step, _ = counts.record(record, one_step)
+    tail, (Q_out, *rest) = counts.record(
+        record, lambda: _tail(Q, q, p, U0, K0, u, inv_mass, log_u, max_delta_energy))
+    at_head, at_step, at_tail = counts.each
+    return _Pieces(inputs, head, step, tail, (Q_out, q, p, *rest), (g, u, U0, K0),
+                   at_head + at_tail, at_step)
+
+
+class ChEESGraphs(GraphCache):
+    """A staged model's captured ChEES transitions (its own batched force)
+    by ``graph_key``, in a ``GraphCache``. One head, one leapfrog step and
+    one tail serve every L, and ε and the mass are inputs, so a key serves
+    every session and drive of the model at that shape."""
+
+    def transition(self, potential_fn, Q, z, log_u, eps, inv_mass, L: int,
+                   max_delta_energy: float):
+        """The eager transition's outputs, replayed from the captures of
+        these inputs' key; the first call for a key runs eagerly, then
+        captures. ``Q_out`` is the caller's own; the other outputs are the
+        graphs' tensors, which the next replay rewrites."""
+        args = (Q, z, log_u, eps, inv_mass)
+        key = graph_key(Q, eps, inv_mass, max_delta_energy)
+        entry = self.get(key)
+        if entry is None:
+            return self._first(key, potential_fn, args, L, max_delta_energy)
+        for buf, x in zip(entry.inputs, args):
+            buf.copy_(x)
+        entry.head.replay()
+        for _ in range(L):
+            entry.step.replay()
+        entry.tail.replay()
+        self.tally(entry.fixed)
+        self.tally(entry.per_step, L)
+        profiling.count("chees.graph_replay")
+        Q_out, Q_new, P_new, accept_prob, accepted, divergent, U_out = entry.outputs
+        return Q_out.clone(), Q_new, P_new, accept_prob, accepted, divergent, L, U_out
+
+    def _first(self, key, potential_fn, args, L, max_delta_energy):
+        """The eager transition, on a side stream (the warm-up that capture
+        wants), then the capture of its pieces on static inputs."""
+        dev = args[0].device
+        out, side = on_side_stream(
+            lambda: _eager_transition(potential_fn, *args, L, max_delta_energy), dev)
+        for t in out:
+            if isinstance(t, torch.Tensor):
+                t.record_stream(torch.cuda.current_stream(dev))
+        inputs = tuple(torch.empty(x.shape, dtype=x.dtype, device=dev) for x in args)
+        try:
+            entry = record_pieces(cuda_recorder(side), potential_fn, inputs, max_delta_energy)
+        except RuntimeError:  # e.g. a host read or a pageable upload in the potential
+            self.failed = True
+            profiling.count("chees.graph_fallback")
+        else:
+            self.put(key, entry)
+            profiling.count("chees.graph_capture")
+        return out
+
+
+def chees_graphs(staged: StagedModel) -> ChEESGraphs:
+    """The staged model's ``ChEESGraphs``, made on first use."""
+    return staged.__dict__.setdefault("chees_transition_graphs", ChEESGraphs())
+
+
+def _claim(staged: StagedModel, Q, discrete=None):
+    """``claimed`` of the model's ``ChEESGraphs`` where they engage
+    (``graph_engages``: CUDA positions, no explicit discrete values)."""
+    return claimed(chees_graphs(staged) if graph_engages(Q, None, discrete) else None)
 
 
 class GeneratorDraws:
@@ -393,7 +554,12 @@ def make_chees_drive(
     t^−0.75; sampling runs at the averaged ε and T, the final T clamped to
     the post-mass cap. No chain rescue. ``chain_group``: the sharded drive
     over this rank's ``n_chains``; ``aps`` are then means over every
-    rank's chains."""
+    rank's chains.
+
+    Where ``graph_engages`` (CUDA positions, no ``discrete``), each
+    transition after its noise replays the model's ``ChEESGraphs``: the
+    same kernels on the same inputs. The noise, τ's read and the
+    adaptation stay eager."""
     if config.criterion not in ("chees", "snaper"):
         raise ValueError(
             f"unknown ChEES criterion {config.criterion!r} (expected 'chees' or 'snaper')"
@@ -407,6 +573,10 @@ def make_chees_drive(
         return staged.potential(z, discrete)
 
     def drive(q0, draws, eps_over=None, T_over=None, inv_mass_over=None):
+        with _claim(staged, q0, discrete) as graphs:
+            return run(q0, draws, graphs, eps_over, T_over, inv_mass_over)
+
+    def run(q0, draws, graphs, eps_over, T_over, inv_mass_over):
         dt, dev = q0.dtype, q0.device
         hs = torch.as_tensor(halton, dtype=dt).tolist()  # the jitter in the run's dtype
         unit = torch.ones((d,), dtype=dt, device=dev)
@@ -426,7 +596,8 @@ def make_chees_drive(
         def transition(q, eps, T, h):
             z, log_u = draws.transition(n_chains, d, dt)
             out = chees_transition(potential, q, z, log_u, eps, T, h, inv_mass,
-                                   config.max_leapfrog, config.max_delta_energy)
+                                   config.max_leapfrog, config.max_delta_energy,
+                                   graphs=graphs)
             counts["leapfrogs"] += out[6]
             counts["host_syncs"] += 1
             return out
@@ -585,7 +756,9 @@ class CheesSession:
     """Stateful incremental ChEES-HMC over a chain batch. Construction runs
     the whole warmup (step size, trajectory length, mass) through
     ``chees_chain``; each ``step()`` then moves every chain one jittered
-    transition with the frozen kernel and returns the batch.
+    transition with the frozen kernel and returns the batch. On a CUDA
+    device the step replays the model's ``ChEESGraphs``, which the
+    model's other sessions share.
 
     ``seed`` seeds a ``torch.Generator`` on the staged model's device, which
     seeds the warmup run and draws every later transition."""
@@ -615,6 +788,8 @@ class CheesSession:
         self.trajectory_length = warm.trajectory_length
         self.inv_mass = warm.inv_mass
         self._Q = warm.final_positions
+        # ε as the transition's kernels read it, made once: no upload per step
+        self._eps = torch.tensor(self.step_size, dtype=self._Q.dtype, device=self._Q.device)
         self._draws = GeneratorDraws(self._generator)
         self._t = 0
 
@@ -630,16 +805,20 @@ class CheesSession:
         h = float(torch.tensor(_halton_point(self._t % (1 << 16)), dtype=dt))
         self._t += 1
         z, log_u = self._draws.transition(self.n_chains, self.staged.dim, dt)
-        Q, _, _, ap, _, div, L, _ = chees_transition(
-            self.staged.potential, self._Q, z, log_u, self.step_size,
-            self.trajectory_length, h, self.inv_mass, self.config.max_leapfrog,
-            self.config.max_delta_energy)
-        self._Q = Q
-        profiling.host_read("chees_session.positions")
-        positions = Q.cpu().numpy()
-        profiling.host_read("chees_session.accept_mean")
-        accept_mean = float(torch.mean(ap))
-        profiling.host_read("chees_session.divergences")
-        divergences = int(torch.sum(div))
+        L = _trajectory_steps(self.step_size, self.trajectory_length, h,
+                              self.config.max_leapfrog)  # host floats: no read
+        # the claim holds the graphs' outputs until they are read
+        with _claim(self.staged, self._Q) as graphs:
+            Q, _, _, ap, _, div, L, _ = chees_transition(
+                self.staged.potential, self._Q, z, log_u, self._eps,
+                self.trajectory_length, h, self.inv_mass, self.config.max_leapfrog,
+                self.config.max_delta_energy, n_leapfrog=L, graphs=graphs)
+            self._Q = Q
+            profiling.host_read("chees_session.positions")
+            positions = Q.cpu().numpy()
+            profiling.host_read("chees_session.accept_mean")
+            accept_mean = float(torch.mean(ap))
+            profiling.host_read("chees_session.divergences")
+            divergences = int(torch.sum(div))
         return {"positions": positions, "accept_mean": accept_mean,
                 "divergences": divergences, "n_leapfrog": L}

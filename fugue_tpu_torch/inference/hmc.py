@@ -23,7 +23,8 @@ How it is expressed in PyTorch:
   potential's L+1 gradients with the leapfrogs and the accept test, as one
   CUDA graph per staged model and shape (``TransitionGraphs``; counts
   ``hmc.graph_replay``, ``hmc.graph_capture``, ``hmc.graph_fallback``).
-  A replay opens no ``potential`` span.
+  A replay opens no ``potential`` span; the cache's ``replayed`` counts
+  the gradients and kernel launches its replays ran.
 - The leapfrog loop and the per-transition adaptation read nothing back to
   the host: step sizes, acceptance statistics and moments stay on the
   device, and host-side counters (dual-averaging step, Welford count) are
@@ -55,6 +56,7 @@ import torch
 from torch.func import grad_and_value, vmap
 
 from .. import settings
+from ..ops import kernels
 from ..parallel.mesh import cross_mean, cross_sum
 from ..runtime.staging import StagedModel, stage
 from ..utils import profiling
@@ -479,23 +481,24 @@ class _Captured(NamedTuple):
     graph: Any  # torch.cuda.CUDAGraph
     inputs: tuple  # (q, p, log_u, eps, inv_mass), copied into before each replay
     outputs: tuple  # (q_out, HmcStepInfo), rewritten by each replay
+    counts: collections.Counter  # what the capture counted (``CaptureCounts``)
 
 
-class TransitionGraphs:
-    """A staged model's captured ``hmc_transition`` (its own batched force)
-    by ``graph_key``, at most ``GRAPHS_PER_MODEL``, the least recently used
-    evicted first. A capture that raises sets ``failed``, and the model's
-    drives stay eager from then on. One drive at a time holds ``lock``
-    (``claimed``).
-
-    A replay runs what the capture recorded: the potential has to be a
-    function of z and of the tensors the model holds, whose contents (not
-    whose Python objects) may change between calls."""
+class GraphCache:
+    """A staged model's captured graphs by key, at most
+    ``GRAPHS_PER_MODEL``, the least recently used evicted first. A capture
+    that raises sets ``failed``, and the model's drives stay eager from then
+    on. One drive at a time holds ``lock`` (``claimed``). ``replayed``
+    counts what the replays ran, which no Python code counts on a replay:
+    the potential's batched runs (``gradients``) and the kernel launches
+    (``kernels.LAUNCHES``'s keys), each replay adding what its capture
+    counted (``tally``)."""
 
     def __init__(self):
         self.entries = collections.OrderedDict()
         self.failed = False
         self.lock = threading.Lock()
+        self.replayed = collections.Counter()
 
     def get(self, key):
         entry = self.entries.get(key)
@@ -508,6 +511,46 @@ class TransitionGraphs:
         self.entries.move_to_end(key)
         while len(self.entries) > GRAPHS_PER_MODEL:
             self.entries.popitem(last=False)
+
+    def tally(self, counts, times: int = 1) -> None:
+        for name, n in counts.items():
+            self.replayed[name] += times * n
+
+
+class CaptureCounts:
+    """The potential's batched runs (``gradients``: ``potential`` is
+    ``potential_fn`` counting its calls) and the kernel launches
+    (``kernels.LAUNCHES``) made in each capture through ``record``, one
+    Counter of the non-zero counts per capture in ``each``."""
+
+    def __init__(self, potential_fn: Callable):
+        self.runs = 0
+        self.each = []
+
+        def potential(z):
+            self.runs += 1
+            return potential_fn(z)
+
+        self.potential = potential
+
+    def _now(self) -> collections.Counter:
+        return collections.Counter(gradients=self.runs, **kernels.LAUNCHES)
+
+    def record(self, record: Callable, fn: Callable):
+        """``record(fn)``, with what it counted appended to ``each``."""
+        before = self._now()
+        out = record(fn)
+        self.each.append(self._now() - before)
+        return out
+
+
+class TransitionGraphs(GraphCache):
+    """A staged model's captured ``hmc_transition`` (its own batched force)
+    by ``graph_key``, in a ``GraphCache``.
+
+    A replay runs what the capture recorded: the potential has to be a
+    function of z and of the tensors the model holds, whose contents (not
+    whose Python objects) may change between calls."""
 
     def transition(self, potential_fn, q, p, log_u, eps, n_leapfrog: int, inv_mass,
                    max_delta_energy: float):
@@ -523,6 +566,7 @@ class TransitionGraphs:
         for buf, x in zip(entry.inputs, args):
             buf.copy_(x)
         entry.graph.replay()
+        self.tally(entry.counts)
         profiling.count("hmc.graph_replay")
         return entry.outputs
 
@@ -530,34 +574,57 @@ class TransitionGraphs:
         """The eager transition, on a side stream (the warm-up that capture
         wants), then the capture of the same call on static inputs."""
 
-        def run(q, p, log_u, eps, inv_mass):
-            return hmc_transition(potential_fn, q, p, log_u, eps, n_leapfrog, inv_mass,
+        def run(potential, q, p, log_u, eps, inv_mass):
+            return hmc_transition(potential, q, p, log_u, eps, n_leapfrog, inv_mass,
                                   max_delta_energy)
 
         dev = args[0].device
-        current, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            q_out, info = run(*args)
-        current.wait_stream(side)
+        (q_out, info), side = on_side_stream(lambda: run(potential_fn, *args), dev)
         for t in (q_out, *vars(info).values()):
-            t.record_stream(current)
+            t.record_stream(torch.cuda.current_stream(dev))
         inputs = tuple(torch.empty(x.shape, dtype=x.dtype, device=dev) for x in args)
-        graph = torch.cuda.CUDAGraph()
+        counts = CaptureCounts(potential_fn)
         try:
-            with torch.cuda.stream(side):
-                graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    outputs = run(*inputs)
-                finally:
-                    graph.capture_end()
+            graph, outputs = counts.record(cuda_recorder(side),
+                                           lambda: run(counts.potential, *inputs))
         except RuntimeError:  # e.g. a host read or a pageable upload in the potential
             self.failed = True
             profiling.count("hmc.graph_fallback")
         else:
-            self.put(key, _Captured(graph, inputs, outputs))
+            self.put(key, _Captured(graph, inputs, outputs, counts.each[0]))
             profiling.count("hmc.graph_capture")
         return q_out, info
+
+
+def on_side_stream(fn, device):
+    """``fn()`` on a new side stream, after the current stream's work and
+    joined back into it: (its output, the side stream). The warm-up run
+    that capture wants, off the default stream; the caller records the
+    output's tensors on the current stream."""
+    current, side = torch.cuda.current_stream(device), torch.cuda.Stream(device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        out = fn()
+    current.wait_stream(side)
+    return out, side
+
+
+def cuda_recorder(stream):
+    """``record(fn) → (graph, fn())``: ``fn`` captured on ``stream`` into a
+    new CUDA graph; an operation that capture refuses raises in this
+    thread."""
+
+    def record(fn):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out = fn()
+            finally:
+                graph.capture_end()
+        return graph, out
+
+    return record
 
 
 def transition_graphs(staged: StagedModel) -> TransitionGraphs:
@@ -566,7 +633,7 @@ def transition_graphs(staged: StagedModel) -> TransitionGraphs:
 
 
 @contextlib.contextmanager
-def claimed(graphs: Optional[TransitionGraphs]):
+def claimed(graphs: Optional[GraphCache]):
     """``graphs`` for the block, or None where there are none, a capture
     failed, or another drive holds them (that drive's replays would rewrite
     the outputs this one reads)."""

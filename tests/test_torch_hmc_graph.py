@@ -5,6 +5,7 @@ the next transition), held against the eager drive bitwise. The card's own
 capture and replay are held in ``tests/test_torch_gpu.py``.
 """
 
+import collections
 from types import SimpleNamespace
 
 import pytest
@@ -70,6 +71,24 @@ def test_the_cache_evicts_the_least_recently_used_beyond_its_bound():
     graphs.put(n + 1, str(n + 1))
     assert list(graphs.entries) == [*range(3, n), 0, n, 2, n + 1][-n:]
     assert graphs.get(2) == "again" and len(graphs.entries) == n
+
+
+def test_a_replay_adds_what_its_capture_counted():
+    """No Python code runs in a replay: each one adds its capture's counts
+    (gradients, kernel launches) to the cache's ``replayed``."""
+    q, eps, inv_mass = _key_inputs()
+    p, log_u = torch.ones_like(q), torch.zeros(8, dtype=q.dtype)
+    replays = []
+    graph = SimpleNamespace(replay=lambda: replays.append(1))
+    counts = collections.Counter(gradients=9, nll=9)
+    graphs = hmc.TransitionGraphs()
+    graphs.put(hmc.graph_key(q, eps, inv_mass, 8, 1000.0),
+               hmc._Captured(graph, tuple(x.clone() for x in (q, p, log_u, eps, inv_mass)),
+                             ("q_out", "info"), counts))
+    for _ in range(3):
+        assert graphs.transition(None, q, p, log_u, eps, 8, inv_mass, 1000.0) == \
+            ("q_out", "info")
+    assert len(replays) == 3 and graphs.replayed == collections.Counter(gradients=27, nll=27)
 
 
 def test_one_drive_at_a_time_claims_a_models_graphs():

@@ -539,6 +539,36 @@ def test_hmc_graph_replay_share_reader_is_silent_on_a_program_without_the_graph(
     assert _read("hmc.graph_replay_share", run) is None
 
 
+def test_chees_graph_replay_share_reader(monkeypatch):
+    recs = [_span("chees.transition", 0, 1, 1), _span("chees.transition", 2, 3, 2),
+            _span("chees.transition", 4, 5, 3), _span("chees.transition", 6, 7, 4),
+            _span("chees.transition", -5, -4, 5), _span("potential", 8, 9, 6),
+            Count("chees.graph_replay", W0 + 5, 1, 1, {}),
+            Count("chees.graph_replay", W0 + 6, 1, 1, {}),
+            Count("chees.graph_replay", W0 + 7, 1, 1, {}),
+            Count("chees.graph_capture", W0 + 8, 1, 1, {}),
+            Count("chees.graph_replay", W0 - 1, 1, 1, {})]
+    run = _run(recs, workload="eight_schools_nc.serve", monkeypatch=monkeypatch)
+    assert _read("chees.graph_replay_share", run) == pytest.approx(75.0)
+    eager = _run([_span("chees.transition", 0, 1, 1)], workload="eight_schools_nc.serve",
+                 monkeypatch=monkeypatch)
+    assert _read("chees.graph_replay_share", eager) == 0.0
+    no_transition = _run([Count("chees.graph_replay", W0 + 5, 1, 1, {})],
+                         workload="eight_schools_nc.serve", monkeypatch=monkeypatch)
+    assert _read("chees.graph_replay_share", no_transition) is None
+    assert _read("chees.graph_replay_share", SimpleNamespace(trace=None, counters={})) is None
+
+
+def test_chees_graph_replay_share_reader_is_silent_on_a_program_without_the_graphs(
+        monkeypatch):
+    from fugue_tpu_torch.inference import chees
+
+    monkeypatch.delattr(chees, "ChEESGraphs")
+    run = _run([_span("chees.transition", 0, 1, 1)], workload="eight_schools_nc.serve",
+               monkeypatch=monkeypatch)
+    assert _read("chees.graph_replay_share", run) is None
+
+
 def _smc_run(recs, monkeypatch, ops=(), chains=1000):
     run = _run(recs, workload="gmm_mixture.smc", ops=ops, monkeypatch=monkeypatch)
     run.cell = {"chains": chains}
