@@ -19,12 +19,16 @@ How it is expressed in PyTorch:
 - Noise is drawn outside the deterministic step: ``hmc_transition`` takes
   the momenta ``p`` and the log-uniforms ``log_u`` as arguments, and the
   drive draws them from an explicit ``torch.Generator`` on the device.
-- On a CUDA device ``make_hmc_drive`` replays that step, the staged
-  potential's L+1 gradients with the leapfrogs and the accept test, as one
-  CUDA graph per staged model and shape (``TransitionGraphs``; counts
-  ``hmc.graph_replay``, ``hmc.graph_capture``, ``hmc.graph_fallback``).
-  A replay opens no ``potential`` span; the cache's ``replayed`` counts
-  the gradients and kernel launches its replays ran.
+- ``hmc_transition`` is a head (U₀ with its gradient, H₀), the leapfrog
+  and a tail (the energy error, the divergence and accept tests), which
+  ChEES's transition shares (``leapfrog_transition``). On a CUDA device
+  ``make_hmc_drive`` and ChEES replay that step after its noise from three
+  CUDA graphs per staged model and shape (``TransitionGraphs``): the head,
+  a block of leapfrog steps replayed L / steps times, and the tail; the
+  HMC drive's block is its whole trajectory, ChEES's one step. Counts
+  ``hmc.graph_replay``, ``hmc.graph_capture``, ``hmc.graph_fallback``. A
+  replay opens no ``potential`` span; the cache's ``replayed`` counts the
+  gradients and kernel launches its replays ran.
 - The leapfrog loop and the per-transition adaptation read nothing back to
   the host: step sizes, acceptance statistics and moments stay on the
   device, and host-side counters (dual-averaging step, Welford count) are
@@ -405,6 +409,51 @@ class HmcStepInfo:
     potential: Any  # U at the returned positions
 
 
+def transition_head(force_fn, q, p, inv_mass):
+    """A transition's start: the gradient and potential at ``q`` from one
+    batched force and the Hamiltonian with momenta ``p``: (G₀, U₀, H₀)."""
+    g0, u0 = force_fn(q)
+    return g0, u0, u0 + mass_kinetic(inv_mass, p)
+
+
+def transition_tail(q, q_new, p_new, u0, h0, u1, log_u, inv_mass, max_delta_energy: float):
+    """A transition's end from the proposal ``(q_new, p_new)`` with its
+    potential ``u1``: the energy error, the divergence test (non-finite, or
+    an energy rise above ``max_delta_energy``; always rejected), the accept
+    test and the kept point: ``(q_out, HmcStepInfo)``."""
+    h1 = u1 + mass_kinetic(inv_mass, p_new)
+    delta = h0 - h1
+    finite = torch.isfinite(delta) & torch.isfinite(u1)
+    divergent = (~finite) | (-delta > max_delta_energy)
+    accept_prob = torch.where(
+        divergent,
+        torch.zeros_like(delta),
+        torch.clamp(torch.exp(torch.clamp(delta, max=50.0)), max=1.0),
+    )
+    accepted = (~divergent) & (log_u < delta)
+    q_out = torch.where(accepted[:, None], q_new, q)
+    info = HmcStepInfo(
+        accept_prob=accept_prob,
+        accepted=accepted,
+        divergent=divergent,
+        energy=torch.where(accepted, h1, h0),
+        potential=torch.where(accepted, u1, u0),
+    )
+    return q_out, info
+
+
+def leapfrog_transition(force_fn, q, p, log_u, eps, n_leapfrog: int, inv_mass,
+                        max_delta_energy: float):
+    """The head, ``n_leapfrog`` leapfrog steps and the tail: ``(q_out,
+    HmcStepInfo, q_new, p_new)``, with the proposal and its end momenta,
+    which ChEES's criterion reads."""
+    g0, u0, h0 = transition_head(force_fn, q, p, inv_mass)
+    q_new, p_new, _, u1 = leapfrog(force_fn, q, p, eps, n_leapfrog, inv_mass, g0)
+    q_out, info = transition_tail(q, q_new, p_new, u0, h0, u1, log_u, inv_mass,
+                                  max_delta_energy)
+    return q_out, info, q_new, p_new
+
+
 def hmc_transition(
     potential_fn: Callable,
     q,
@@ -428,32 +477,13 @@ def hmc_transition(
     """
     if force_fn is None:
         force_fn = batched_force(potential_fn)
-    g0, u0 = force_fn(q)
-    h0 = u0 + mass_kinetic(inv_mass, p)
-    q_new, p_new, _, u1 = leapfrog(force_fn, q, p, eps, n_leapfrog, inv_mass, g0)
-    h1 = u1 + mass_kinetic(inv_mass, p_new)
-    delta = h0 - h1
-    finite = torch.isfinite(delta) & torch.isfinite(u1)
-    divergent = (~finite) | (-delta > max_delta_energy)
-    accept_prob = torch.where(
-        divergent,
-        torch.zeros_like(delta),
-        torch.clamp(torch.exp(torch.clamp(delta, max=50.0)), max=1.0),
-    )
-    accepted = (~divergent) & (log_u < delta)
-    q_out = torch.where(accepted[:, None], q_new, q)
-    info = HmcStepInfo(
-        accept_prob=accept_prob,
-        accepted=accepted,
-        divergent=divergent,
-        energy=torch.where(accepted, h1, h0),
-        potential=torch.where(accepted, u1, u0),
-    )
+    q_out, info, _, _ = leapfrog_transition(force_fn, q, p, log_u, eps, n_leapfrog, inv_mass,
+                                            max_delta_energy)
     return q_out, info
 
 
 # ---------------------------------------------------------------------------
-# One transition as a CUDA graph
+# One transition as CUDA graphs
 # ---------------------------------------------------------------------------
 
 # Captured transitions kept per staged model; the least recently used goes.
@@ -461,27 +491,21 @@ GRAPHS_PER_MODEL = 4
 
 
 def graph_engages(q, force_fn, discrete) -> bool:
-    """Whether ``make_hmc_drive`` replays its transitions from a CUDA graph:
-    the positions are on a CUDA device and the force is the staged
-    potential's own. A ``force_fn`` or an explicit ``discrete`` may close
-    over tensors of one call (Gibbs's values, tempering's β, SBC's data),
-    whose addresses a replay in a later call would read stale."""
+    """Whether a drive replays its transitions from CUDA graphs: the
+    positions are on a CUDA device and the force is the staged potential's
+    own. A ``force_fn`` or an explicit ``discrete`` may close over tensors
+    of one call (Gibbs's values, tempering's β, SBC's data), whose addresses
+    a replay in a later call would read stale."""
     return q.is_cuda and force_fn is None and discrete is None
 
 
-def graph_key(q, eps, inv_mass, n_leapfrog: int, max_delta_energy: float) -> tuple:
-    """What a captured transition is specific to, all of it seen in the
-    drive's inputs: device, dtype, (n_chains, d), L, the shapes of ε and of
-    the mass (diagonal, dense, per chain), and the divergence threshold."""
-    return (q.device, q.dtype, tuple(q.shape), int(n_leapfrog), tuple(eps.shape),
+def graph_key(q, eps, inv_mass, steps: int, max_delta_energy: float) -> tuple:
+    """What a captured transition is specific to, all of it seen in its
+    inputs: device, dtype, (n_chains, d), the leapfrog steps of its block,
+    the shapes of ε and of the mass (diagonal, dense, per chain), and the
+    divergence threshold. Not the values: they are copied into the inputs."""
+    return (q.device, q.dtype, tuple(q.shape), int(steps), tuple(eps.shape),
             tuple(inv_mass.shape), float(max_delta_energy))
-
-
-class _Captured(NamedTuple):
-    graph: Any  # torch.cuda.CUDAGraph
-    inputs: tuple  # (q, p, log_u, eps, inv_mass), copied into before each replay
-    outputs: tuple  # (q_out, HmcStepInfo), rewritten by each replay
-    counts: collections.Counter  # what the capture counted (``CaptureCounts``)
 
 
 class GraphCache:
@@ -544,92 +568,137 @@ class CaptureCounts:
         return out
 
 
+class _Entry(NamedTuple):
+    """A captured transition: three graphs (``replay()``) over static tensors."""
+
+    inputs: tuple  # (q, p, log_u, eps, inv_mass), copied into before each transition
+    head: Any  # writes q and p (copies of the inputs), g, U₀ and H₀
+    block: Any  # ``steps`` leapfrog steps of (q, p, g, u), written back in place
+    tail: Any  # the accept test, from the input q, q, p, u, U₀ and H₀
+    outputs: tuple  # (q_out, HmcStepInfo, q, p)
+    # (g, u, U₀, H₀): a graph holds no reference to the memory it reads and
+    # writes, which would otherwise go back to the allocator
+    kept: tuple
+    fixed: collections.Counter  # what the head's and the tail's captures counted
+    per_block: collections.Counter  # what the block's capture counted
+
+
+def record_transition(record: Callable, potential_fn: Callable, inputs, steps: int,
+                      max_delta_energy: float) -> _Entry:
+    """``leapfrog_transition`` on the static ``inputs`` as three graphs, each
+    made by ``record(fn) → (graph, fn())``, whose replays run the eager
+    transition's kernels in its order: the head, the block of ``steps``
+    leapfrog steps L / ``steps`` times, the tail."""
+    q_in, p_in, log_u, eps, inv_mass = inputs
+    counts = CaptureCounts(potential_fn)
+    force = batched_force(counts.potential)
+    head, (q, p, g, u0, h0) = counts.record(
+        record, lambda: (q_in.clone(), p_in.clone(), *transition_head(force, q_in, p_in, inv_mass)))
+    u = torch.empty_like(u0)
+
+    def block():
+        for buf, x in zip((q, p, g, u), leapfrog(force, q, p, eps, steps, inv_mass, g)):
+            buf.copy_(x)
+
+    block_graph, _ = counts.record(record, block)
+    tail, (q_out, info) = counts.record(
+        record, lambda: transition_tail(q_in, q, p, u0, h0, u, log_u, inv_mass, max_delta_energy))
+    at_head, at_block, at_tail = counts.each
+    return _Entry(inputs, head, block_graph, tail, (q_out, info, q, p), (g, u, u0, h0),
+                  at_head + at_tail, at_block)
+
+
 class TransitionGraphs(GraphCache):
-    """A staged model's captured ``hmc_transition`` (its own batched force)
-    by ``graph_key``, in a ``GraphCache``.
+    """A staged model's captured ``leapfrog_transition`` (its own batched
+    force) by ``graph_key``, in a ``GraphCache``: a head, a block of
+    ``steps`` leapfrog steps replayed L / ``steps`` times, and a tail. ε and
+    the mass are inputs, so a key serves every drive and session of the
+    model at its shape. ``steps`` None makes the block the whole trajectory
+    (one capture per L: the HMC drive's constant L); counts
+    ``<prefix>.graph_replay``, ``.graph_capture`` and ``.graph_fallback``.
 
     A replay runs what the capture recorded: the potential has to be a
     function of z and of the tensors the model holds, whose contents (not
     whose Python objects) may change between calls."""
 
+    prefix = "hmc"
+    steps: Optional[int] = None
+
     def transition(self, potential_fn, q, p, log_u, eps, n_leapfrog: int, inv_mass,
                    max_delta_energy: float):
-        """``hmc_transition(potential_fn, ...)``, replayed from the graph of
-        these inputs' key; the first call for a key runs eagerly, then
-        captures. A replay's outputs are the graph's own tensors, which the
-        next replay rewrites."""
+        """``leapfrog_transition(batched_force(potential_fn), ...)``, replayed
+        from the graphs of these inputs' key (L a multiple of ``steps``); the
+        first call for a key runs eagerly, then captures. A replay's outputs
+        are the graphs' own tensors, which the next replay rewrites."""
+        steps = self.steps or n_leapfrog
         args = (q, p, log_u, eps, inv_mass)
-        key = graph_key(q, eps, inv_mass, n_leapfrog, max_delta_energy)
+        key = graph_key(q, eps, inv_mass, steps, max_delta_energy)
         entry = self.get(key)
         if entry is None:
-            return self._first(key, potential_fn, args, n_leapfrog, max_delta_energy)
+            return self._first(key, potential_fn, args, n_leapfrog, steps, max_delta_energy)
         for buf, x in zip(entry.inputs, args):
             buf.copy_(x)
-        entry.graph.replay()
-        self.tally(entry.counts)
-        profiling.count("hmc.graph_replay")
+        entry.head.replay()
+        for _ in range(n_leapfrog // steps):
+            entry.block.replay()
+        entry.tail.replay()
+        self.tally(entry.fixed)
+        self.tally(entry.per_block, n_leapfrog // steps)
+        profiling.count(f"{self.prefix}.graph_replay")
         return entry.outputs
 
-    def _first(self, key, potential_fn, args, n_leapfrog, max_delta_energy):
-        """The eager transition, on a side stream (the warm-up that capture
-        wants), then the capture of the same call on static inputs."""
-
-        def run(potential, q, p, log_u, eps, inv_mass):
-            return hmc_transition(potential, q, p, log_u, eps, n_leapfrog, inv_mass,
-                                  max_delta_energy)
-
-        dev = args[0].device
-        (q_out, info), side = on_side_stream(lambda: run(potential_fn, *args), dev)
-        for t in (q_out, *vars(info).values()):
-            t.record_stream(torch.cuda.current_stream(dev))
-        inputs = tuple(torch.empty(x.shape, dtype=x.dtype, device=dev) for x in args)
-        counts = CaptureCounts(potential_fn)
+    def _first(self, key, potential_fn, args, n_leapfrog, steps, max_delta_energy):
+        """The eager transition (the warm-up that capture wants), then the
+        capture of its three graphs on static inputs."""
+        q, p, log_u, eps, inv_mass = args
+        out, record = self._warm_up(
+            lambda: leapfrog_transition(batched_force(potential_fn), q, p, log_u, eps,
+                                        n_leapfrog, inv_mass, max_delta_energy), q.device)
+        # the static inputs, holding this call's values while it is captured
+        inputs = tuple(x.clone(memory_format=torch.contiguous_format) for x in args)
         try:
-            graph, outputs = counts.record(cuda_recorder(side),
-                                           lambda: run(counts.potential, *inputs))
+            entry = record_transition(record, potential_fn, inputs, steps, max_delta_energy)
         except RuntimeError:  # e.g. a host read or a pageable upload in the potential
             self.failed = True
-            profiling.count("hmc.graph_fallback")
+            profiling.count(f"{self.prefix}.graph_fallback")
         else:
-            self.put(key, _Captured(graph, inputs, outputs, counts.each[0]))
-            profiling.count("hmc.graph_capture")
-        return q_out, info
+            self.put(key, entry)
+            profiling.count(f"{self.prefix}.graph_capture")
+        return out
+
+    def _warm_up(self, fn, device):
+        """``(fn(), record)``: the eager transition on a new side stream,
+        after the current stream's work and joined back into it (the warm-up
+        that capture wants), and ``record(fn) → (graph, fn())``, which
+        captures ``fn`` on that stream into a new CUDA graph; an operation
+        that capture refuses raises in this thread."""
+        current, side = torch.cuda.current_stream(device), torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            q_out, info, q_new, p_new = fn()
+        current.wait_stream(side)
+        for t in (q_out, *vars(info).values(), q_new, p_new):
+            t.record_stream(current)
+
+        def record(fn):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(side):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    out = fn()
+                finally:
+                    graph.capture_end()
+            return graph, out
+
+        return (q_out, info, q_new, p_new), record
 
 
-def on_side_stream(fn, device):
-    """``fn()`` on a new side stream, after the current stream's work and
-    joined back into it: (its output, the side stream). The warm-up run
-    that capture wants, off the default stream; the caller records the
-    output's tensors on the current stream."""
-    current, side = torch.cuda.current_stream(device), torch.cuda.Stream(device)
-    side.wait_stream(current)
-    with torch.cuda.stream(side):
-        out = fn()
-    current.wait_stream(side)
-    return out, side
-
-
-def cuda_recorder(stream):
-    """``record(fn) → (graph, fn())``: ``fn`` captured on ``stream`` into a
-    new CUDA graph; an operation that capture refuses raises in this
-    thread."""
-
-    def record(fn):
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(stream):
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                out = fn()
-            finally:
-                graph.capture_end()
-        return graph, out
-
-    return record
-
-
-def transition_graphs(staged: StagedModel) -> TransitionGraphs:
-    """The staged model's ``TransitionGraphs``, made on first use."""
-    return staged.__dict__.setdefault("hmc_transition_graphs", TransitionGraphs())
+def transition_graphs(staged: StagedModel, cls: type) -> TransitionGraphs:
+    """The staged model's cache of class ``cls`` (``TransitionGraphs`` or a
+    subclass), made on first use. Each class has its own, with its own
+    claim, so an HMC drive and a ChEES session of one model do not wait for
+    each other."""
+    return staged.__dict__.setdefault(f"{cls.prefix}_transition_graphs", cls())
 
 
 @contextlib.contextmanager
@@ -644,6 +713,13 @@ def claimed(graphs: Optional[GraphCache]):
         yield graphs
     finally:
         graphs.lock.release()
+
+
+def claim_graphs(staged: StagedModel, cls: type, q, force_fn=None, discrete=None):
+    """``claimed`` of the model's ``cls`` cache where it engages
+    (``graph_engages``), else of None."""
+    engages = graph_engages(q, force_fn, discrete)
+    return claimed(transition_graphs(staged, cls) if engages else None)
 
 
 # ---------------------------------------------------------------------------
@@ -854,9 +930,10 @@ def make_hmc_drive(
     ``inv_mass_over`` replace the initial step size and mass (resume).
 
     Where ``graph_engages`` (CUDA positions, the staged potential's own
-    force), a transition after the noise is a replay of one CUDA graph,
-    captured once per staged model and ``graph_key`` and kept on the model
-    (``transition_graphs``) for later drives and calls: the same kernels on
+    force), a transition after the noise is a replay of the model's
+    ``TransitionGraphs`` (``transition_graphs``), whose block is the whole
+    trajectory of the drive's constant L: captured once per staged model
+    and ``graph_key``, kept for later drives and calls, the same kernels on
     the same inputs. The noise, the adaptation and the rescue stay eager.
     """
     d = staged.dim
@@ -872,8 +949,7 @@ def make_hmc_drive(
     chains = n_chains if per_chain else None
 
     def drive(q0, generator: torch.Generator, eps_over=None, inv_mass_over=None):
-        engages = graph_engages(q0, force_fn, discrete)
-        with claimed(transition_graphs(staged) if engages else None) as graphs:
+        with claim_graphs(staged, TransitionGraphs, q0, force_fn, discrete) as graphs:
             return run(q0, generator, graphs, eps_over, inv_mass_over)
 
     def run(q0, generator, graphs, eps_over, inv_mass_over):
@@ -901,8 +977,9 @@ def make_hmc_drive(
             if config.jitter > 0:
                 eps = eps * (1.0 - config.jitter * uniform((n_chains,)))
             if graphs is not None and not graphs.failed:
-                return graphs.transition(potential, q, p, log_u, eps, L, inv_mass,
-                                         config.max_delta_energy)
+                q_out, info, _, _ = graphs.transition(potential, q, p, log_u, eps, L,
+                                                      inv_mass, config.max_delta_energy)
+                return q_out, info
             return hmc_transition(potential, q, p, log_u, eps, L, inv_mass,
                                   config.max_delta_energy, force_fn=force)
 

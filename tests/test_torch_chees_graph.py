@@ -1,11 +1,14 @@
-"""The ChEES transition's CUDA-graph path (``chees.ChEESGraphs``).
+"""The ChEES transition's CUDA-graph path (``chees.ChEESGraphs``, the
+``hmc.TransitionGraphs`` whose block is one leapfrog step).
 
-On the CPU: when the path engages, what a capture is keyed by, and the
-path itself through a stand-in for the card's graphs whose replays run the
-recorded function again and write into the first call's outputs, as a
-replay rewrites a graph's tensors: one transition across Halton lengths,
-the drive (warmup and a resumed call) and two sessions of one model with
-their own step size and mass, each held against the eager path bitwise.
+On the CPU, through ``_RerunGraphs``, a stand-in for the card's graphs
+whose replays run the recorded function again and write into the first
+call's outputs, as a replay rewrites a graph's tensors: one transition
+across Halton lengths, what its replays tally, the drive (warmup and a
+resumed call) and two sessions of one model with their own step size and
+mass, each held against the eager path bitwise. When the path engages,
+its key, the caches' claims and a CPU run's untouched ``torch.cuda`` are
+held in ``tests/test_torch_hmc_graph.py`` for both drives.
 
 On the card (marked ``gpu``; this file imports no JAX, so it runs past the
 suite's conftest): the captured head, leapfrog step and tail against the
@@ -20,8 +23,6 @@ float32 rounding of the eager transition, small and at ``scale_chees``'s shape:
 """
 
 import collections
-import time
-from types import SimpleNamespace
 
 import pytest
 import torch
@@ -29,11 +30,10 @@ import torch
 import fugue_tpu_torch as ftt
 from chip_smoke import _host_syncs, eight_schools_model
 from fugue_tpu_torch import settings
-from fugue_tpu_torch.inference import chees
+from fugue_tpu_torch.inference import chees, hmc
 from fugue_tpu_torch.ops import kernels
-from fugue_tpu_torch.utils import profiling
+from test_torch_hmc_graph import _RerunGraphs, graph_counts
 
-ON_CARD = SimpleNamespace(is_cuda=True)
 OUTPUTS = ("Q_out", "Q_prop", "P_end", "accept_prob", "accepted", "divergent", "L", "U_out")
 
 
@@ -52,22 +52,8 @@ def cuda():
 
 
 def _graph_counts(fn):
-    """(fn(), the ``chees.graph_*`` counts it made), recorded under a
-    profiler session."""
-    from torch.profiler import ProfilerActivity, profile
-
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    t0 = time.time_ns()
-    with profile(activities=[ProfilerActivity.CPU]):
-        out = fn()
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-    counts = collections.Counter()
-    for r in profiling.records(t0, time.time_ns()):
-        if isinstance(r, profiling.Count) and r.name.startswith("chees.graph_"):
-            counts[r.name] += r.n
-    return out, dict(counts)
+    """(fn(), the ``chees.graph_*`` counts it made)."""
+    return graph_counts(fn, "chees")
 
 
 def _assert_same(got, want):
@@ -106,121 +92,17 @@ def _inputs(device, dtype, n_chains=64, seed=0):
 # -- on the CPU ----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("q, discrete, engages", [
-    (ON_CARD, None, True),
-    (torch.zeros(4, 3), None, False),
-    (ON_CARD, {}, False),
-    (ON_CARD, {"k": torch.zeros(())}, False),
-], ids=["cuda", "cpu", "empty_discrete", "discrete"])
-def test_the_graphs_are_claimed_only_on_the_card_without_discrete_values(q, discrete,
-                                                                          engages):
-    staged = ftt.stage(eight_schools_model("cpu"), device="cpu")
-    with chees._claim(staged, q, discrete) as graphs:
-        if engages:
-            assert graphs is chees.chees_graphs(staged)
-            assert isinstance(graphs, chees.ChEESGraphs) and graphs.lock.locked()
-            with chees._claim(staged, q, discrete) as other:
-                assert other is None  # one drive or session at a time
-        else:
-            assert graphs is None
-    assert not chees.chees_graphs(staged).lock.locked()
-
-
-def _key_inputs(chains=8, d=3, dtype=torch.float64, eps_shape=(), mass_shape=(3,)):
-    return (torch.zeros(chains, d, dtype=dtype), torch.zeros(eps_shape, dtype=dtype),
-            torch.zeros(mass_shape, dtype=dtype))
-
-
-@pytest.mark.parametrize("changed, mde", [
-    (dict(chains=16), 1000.0),
-    (dict(d=4, mass_shape=(4,)), 1000.0),
-    (dict(dtype=torch.float32), 1000.0),
-    (dict(eps_shape=(8,)), 1000.0),
-    (dict(mass_shape=(3, 3)), 1000.0),
-    ({}, 100.0),
-], ids=["n_chains", "d", "dtype", "eps_shape", "mass_shape", "max_delta"])
-def test_graph_key_tells_apart_shapes_and_not_values(changed, mde):
-    base = chees.graph_key(*_key_inputs(), 1000.0)
-    Q, eps, inv_mass = _key_inputs()
-    assert chees.graph_key(Q + 1.0, eps + 0.5, inv_mass * 3.0, 1000.0) == base
-    assert chees.graph_key(*_key_inputs(**changed), mde) != base
-
-
-def test_a_cpu_run_never_touches_torch_cuda_nor_counts_a_graph(monkeypatch, x64):
-    def refuse(*args, **kwargs):
-        raise AssertionError("a CPU run reached torch.cuda or the graphs")
-
-    for name in ("CUDAGraph", "Stream", "current_stream", "stream", "graph", "synchronize"):
-        monkeypatch.setattr(torch.cuda, name, refuse)
-    monkeypatch.setattr(chees, "ChEESGraphs", refuse)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    staged = ftt.stage(eight_schools_model("cpu", torch.float64), device="cpu")
-
-    def runs():
-        first = ftt.chees_chain(1, staged=staged, n_chains=8, n_samples=3, n_warmup=6)
-        ftt.chees_chain(2, staged=staged, n_chains=8, n_samples=3, n_warmup=0, resume=first)
-        sess = ftt.CheesSession(3, staged=staged, n_chains=8, n_warmup=4)
-        return sess.step()
-
-    out, counts = _graph_counts(runs)
-    assert counts == {} and out["n_leapfrog"] >= 1
-    assert "chees_transition_graphs" not in vars(staged)
-
-
-def _rerun(fn):
-    """The card's ``record`` on the CPU: (graph, fn()), where the graph's
-    ``replay()`` runs ``fn`` again and writes its outputs into the first
-    call's, as a replay rewrites the captured tensors."""
-    out = fn()
-
-    def replay():
-        new = fn()
-        for buf, x in zip(out or (), new or ()):
-            buf.copy_(x)
-
-    return SimpleNamespace(replay=replay), out
-
-
-class _RerunGraphs(chees.ChEESGraphs):
-    """``ChEESGraphs`` whose first call for a key runs eagerly and records
-    the pieces with ``_rerun``: the real replay sequence, inputs and
-    outputs, without a card."""
-
-    def _first(self, key, potential_fn, args, L, max_delta_energy):
-        out = chees._eager_transition(potential_fn, *args, L, max_delta_energy)
-        inputs = tuple(x.clone() for x in args)
-        self.put(key, chees.record_pieces(_rerun, potential_fn, inputs, max_delta_energy))
-        profiling.count("chees.graph_capture")
-        return out
-
-
-def test_the_entry_holds_every_tensor_its_pieces_read_or_write(x64):
-    """A CUDA graph holds no reference to the memory it reads and writes:
-    every tensor a recorded piece closes over is held by the entry, or the
-    allocator hands its memory to the next tensor made."""
-    recorded = []
-
-    def record(fn):
-        recorded.append(fn)
-        return _rerun(fn)
-
-    staged = ftt.stage(eight_schools_model("cpu", torch.float64), device="cpu")
-    Q, z, log_u, eps, _, inv_mass = _inputs("cpu", torch.float64)
-    entry = chees.record_pieces(record, staged.potential, (Q, z, log_u, eps, inv_mass), 1000.0)
-    held = {id(t) for t in (*entry.inputs, *entry.outputs, *entry.kept)}
-    closed_over = [c.cell_contents for fn in recorded for c in fn.__closure__ or ()
-                   if isinstance(c.cell_contents, torch.Tensor)]
-    assert len(recorded) == 3 and len(closed_over) >= 12
-    assert all(id(t) in held for t in closed_over)
+class _RerunChEESGraphs(_RerunGraphs, chees.ChEESGraphs):
+    """``ChEESGraphs`` recorded with the CPU stand-in."""
 
 
 def test_the_recorded_pieces_give_the_eager_transition_for_every_L(x64):
-    """One key's head, step and tail, replayed for h over the Halton
+    """One key's head, one-step block and tail, replayed for h over the Halton
     sequence (L from 1 to 13), equal the eager transition bitwise, and only
     Q_out is a new tensor on each call."""
     staged = ftt.stage(eight_schools_model("cpu", torch.float64), device="cpu")
     Q, z, log_u, eps, T, inv_mass = _inputs("cpu", torch.float64)
-    graphs = _RerunGraphs()
+    graphs = _RerunChEESGraphs()
     Ls, kept = set(), []
     for h in chees.halton_sequence(40).tolist():
         args = (staged.potential, Q, z, log_u, eps, T, h, inv_mass, 1024)
@@ -235,8 +117,9 @@ def test_the_recorded_pieces_give_the_eager_transition_for_every_L(x64):
 
 def test_a_replay_counts_the_gradients_and_launches_its_capture_counted(monkeypatch, x64):
     """No Python code runs in a replay, so the cache's ``replayed`` adds what
-    each piece's capture counted: one gradient and its kernel launch for the
-    head and for each of the L steps, none for the tail."""
+    each graph's capture counted: one gradient and its kernel launch for the
+    head and for each of the L replays of the one-step block, none for the
+    tail."""
     monkeypatch.setattr(kernels, "LAUNCHES", dict.fromkeys(kernels.LAUNCHES, 0))
     staged = ftt.stage(eight_schools_model("cpu", torch.float64), device="cpu")
 
@@ -245,7 +128,7 @@ def test_a_replay_counts_the_gradients_and_launches_its_capture_counted(monkeypa
         return staged.potential(z)
 
     Q, z, log_u, eps, T, inv_mass = _inputs("cpu", torch.float64)
-    graphs = _RerunGraphs()
+    graphs = _RerunChEESGraphs()
     Ls = [chees.chees_transition(launching, Q, z, log_u, eps, T, h, inv_mass, 1024,
                                  graphs=graphs)[6]
           for h in chees.halton_sequence(20).tolist()]
@@ -255,13 +138,13 @@ def test_a_replay_counts_the_gradients_and_launches_its_capture_counted(monkeypa
 
 
 def _graph_path_on_cpu(monkeypatch):
-    monkeypatch.setattr(chees, "graph_engages", lambda q, force_fn, discrete: True)
-    monkeypatch.setattr(chees, "ChEESGraphs", _RerunGraphs)
+    monkeypatch.setattr(hmc, "graph_engages", lambda q, force_fn, discrete: True)
+    monkeypatch.setattr(chees, "ChEESGraphs", _RerunChEESGraphs)
 
 
 def test_the_drive_through_rewritten_outputs_equals_the_eager_drive(monkeypatch, x64):
     """A fresh chees_chain (warmup and sampling) and a resumed call through
-    the recorded pieces give the eager drive's draws, step size, T and mass
+    the recorded graphs give the eager drive's draws, step size, T and mass
     bitwise, and the first result's final positions stay as they were."""
     kw = dict(n_chains=8, n_samples=5)
 
@@ -313,7 +196,7 @@ def test_two_sessions_of_one_model_share_the_pieces_and_keep_their_chains(monkey
 
 
 def _eager_on_the_card(monkeypatch):
-    monkeypatch.setattr(chees, "graph_engages", lambda q, force_fn, discrete: False)
+    monkeypatch.setattr(hmc, "graph_engages", lambda q, force_fn, discrete: False)
 
 
 @pytest.mark.gpu

@@ -988,7 +988,7 @@ def test_dense_mass_hmc_chain_replays_its_captured_transition():
     args = (staged.potential, q, p, log_u, eps, 8, sigma, 1000.0)
     graphs = hmc.TransitionGraphs()
     graphs.transition(*args)  # eager, then the capture
-    qg, ig = graphs.transition(*args)
+    qg, ig, _, _ = graphs.transition(*args)
     qe, ie = hmc.hmc_transition(*args)
     assert torch.equal(ig.accepted, ie.accepted) and torch.equal(ig.divergent, ie.divergent)
     torch.testing.assert_close(qg, qe, rtol=0.0, atol=1e-6)
