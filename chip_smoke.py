@@ -351,8 +351,8 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernel", "eight_schools", "gaussian_plate", "smc_kernels", "smc",
-          "nuts_eight_schools", "nuts_plate", "smc_coin", "smc_mixture", "smc_discrete",
+PHASES = ("build", "kernel", "eight_schools", "gaussian_plate", "smc_kernels", "normal_plane",
+          "smc", "nuts_eight_schools", "nuts_plate", "smc_coin", "smc_mixture", "smc_discrete",
           "chees_eight_schools", "chees_plate", "mh_coin", "mh_hierarchical",
           "vi_hierarchical", "vi_plate", "vi_scale", "abc_rejection", "abc_smc",
           "logistic_scale", "scale_nuts", "scale_chees", "scale_densemass", "scale_plate",
@@ -360,12 +360,16 @@ PHASES = ("build", "kernel", "eight_schools", "gaussian_plate", "smc_kernels", "
           "pt_bimodal", "loo_eight_schools", "validation_conjugate", "sbc_normal",
           "mh_transdimensional", "serve_coin", "serve_eight_schools", "serve_pf",
           "sharded_hmc", "sharded_smc", "sharded_vi_plate", "two_ranks", "serve_sharded")
-SOURCES = ("normal_loglik_sum", "logsumexp", "systematic_resample")
+SOURCES = ("normal_loglik_sum", "logsumexp", "systematic_resample", "normal_plane")
 REPLACES = {
     # _nll_fwd_kernel and _nll_bwd_kernel, one value-and-grad kernel here
     "nll": "fugue_tpu/ops/pallas_kernels.py:310, fugue_tpu/ops/pallas_kernels.py:332",
     "lse": "fugue_tpu/ops/pallas_kernels.py:83",  # _plogsumexp_kernel
     "resample": "fugue_tpu/ops/pallas_kernels.py:186",  # _presample_kernel
+    # no Pallas kernel: Normal.log_prob, which the JAX package leaves to
+    # XLA's fusion under jit
+    "normal_plane": "none (fugue_tpu/core/distributions.py:198)",
+    "normal_plane_grad": "none (fugue_tpu/core/distributions.py:198)",
 }
 MAIN_SHAPE = (64, 1 << 20)  # (chains, rows) of the plate phase
 N_PARTICLES = 131072  # bench_smc / bench_smc_hmc
@@ -516,7 +520,7 @@ def reset_launches():
 
 def read_launches():
     """The launch counts since ``reset_launches``, once the work queued has
-    run: {"nll", "lse", "resample"}."""
+    run: {"nll", "lse", "resample", "normal_plane", "normal_plane_grad"}."""
     from fugue_tpu_torch.ops import kernels as K
 
     torch.cuda.synchronize()
@@ -649,7 +653,7 @@ def _hold_plate_f64(K, y, mu, sigma, what):
 # each kernel's largest |kernel - plain| on the inputs of its main-path
 # calls, by the call's name: the kernels line reports the largest of
 # these and the kernel phase's row
-PATH_HOLDS = {"nll": {}, "lse": {}, "resample": {}}
+PATH_HOLDS = {"nll": {}, "lse": {}, "resample": {}, "normal_plane": {}, "normal_plane_grad": {}}
 
 
 def _path_plate_call(calls, n_chains, what):
@@ -1372,6 +1376,189 @@ def phase_smc_kernels():
     rows["launch_floor_ms"] = device_ms(lambda: one.add_(1.0))
     emit({"phase": "smc_kernels", "launch_floor_ms": rows["launch_floor_ms"]})
     return rows
+
+
+NORMAL_PLANE_SHAPE = (N_PARTICLES, 1000)  # (rows, N) of gmm_mixture.smc's gradients
+
+
+def _normal_plane_inputs(c, n, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    y = -1.0 + 2.5 * torch.randn(n, generator=g, device="cuda", dtype=dtype)
+    loc = 2.0 * torch.randn(c, generator=g, device="cuda", dtype=dtype)
+    scale = 0.3 + torch.rand(c, generator=g, device="cuda", dtype=dtype)
+    cot = torch.randn(c, n, generator=g, device="cuda", dtype=dtype)
+    return y, loc, scale, cot
+
+
+def normal_plane_tolerances(y, loc, scale, cot):
+    """Bounds on the normal_plane kernels' errors from float64, elementwise
+    for the forward, per row for the backward, for inputs of dtype eps:
+    4 eps (z²/2 + |log σ| + log(2π)/2), the few roundings of each term;
+    and 64 eps Σ_i |g|(|z| + z² + 1)/σ, a sum of N terms added in about
+    N / 32 + 5 steps at this N, each term rounded a few times."""
+    eps = torch.finfo(y.dtype).eps
+    y, loc, scale, cot = (t.double() for t in (y, loc, scale, cot))
+    z = (y - loc[:, None]) / scale[:, None]
+    fwd = 4 * eps * (0.5 * z * z + torch.log(scale).abs()[:, None] + 0.5 * math.log(2 * math.pi))
+    bwd = 64 * eps * torch.sum(cot.abs() * (z.abs() + z * z + 1.0), -1) / scale
+    return fwd, bwd
+
+
+def _hold_normal_plane(K, y, loc, scale, cot, what):
+    """Both kernels against their float64 versions, within
+    ``normal_plane_tolerances``, and against themselves run again
+    (bitwise); returns the largest differences from the plain versions in
+    the inputs' dtype."""
+    wide = [t.double() for t in (y, loc, scale, cot)]
+    fwd_tol, bwd_tol = normal_plane_tolerances(y, loc, scale, cot)
+    out = {}
+    got = K._plane(y, loc, scale)
+    err = (got.double() - K.normal_plane_ref(*wide[:3])).abs()
+    check(bool((err <= fwd_tol).all()), f"{what} forward vs f64: {err.max().item()}")
+    out["forward_vs_plain"] = (got - K.normal_plane_ref(y, loc, scale)).abs().max().item()
+    check(torch.equal(K._plane(y, loc, scale), got), f"{what} forward: not deterministic")
+    got = K._plane_grad(cot, y, loc, scale)
+    plain = K.normal_plane_grad_ref(cot, y, loc, scale)
+    ref = K.normal_plane_grad_ref(wide[3], *wide[:3])
+    for name, k, p, r in zip(("dloc", "dscale"), got, plain, ref):
+        err = (k.double() - r).abs()
+        check(bool((err <= bwd_tol).all()), f"{what} {name} vs f64: {err.max().item()}")
+        out[f"{name}_vs_plain"] = (k - p).abs().max().item()
+    again = K._plane_grad(cot, y, loc, scale)
+    check(all(torch.equal(a, b) for a, b in zip(again, got)), f"{what} backward: not deterministic")
+    return out
+
+
+def _hold_routed_gradient(routed, plain, wide):
+    """The gmm gradient and value through the kernels against the plain
+    float32 expression and a float64 evaluation: both float32 paths run
+    the same operations but for the two densities, so per output (the
+    gradient's coordinates and the value) the routed path's largest error
+    from float64 over the particles is held to four times the plain
+    path's, the rounding of float32 on these inputs. The two densities
+    round in another order than the plain expression's dozen operations,
+    so the two errors differ by a factor near 1 either way (0.6-1.4 with
+    the CPU's version of the densities at 4,096 particles). Returns the largest
+    differences and whether each output is within its bound; the caller
+    checks that once the row is out."""
+    out = {}
+    for name, r, p, w in zip(("gradient", "value"), routed, plain, wide):
+        check(r.shape == p.shape == w.shape and bool(torch.isfinite(r).all()),
+              f"routed gmm {name}: shape {tuple(r.shape)} or non-finite")
+        er = (r.double() - w).abs().reshape(w.shape[0], -1).amax(0)
+        ep = (p.double() - w).abs().reshape(w.shape[0], -1).amax(0)
+        out[name] = {"routed_vs_plain": (r - p).abs().max().item(),
+                     "routed_vs_f64": er.tolist(), "plain_vs_f64": ep.tolist(),
+                     "within": bool((er <= 4 * ep).all())}
+    return out
+
+
+def phase_normal_plane():
+    """The Normal log-density kernels of shared data (``normal_plane``,
+    forward and backward) against their plain versions; their times at
+    gmm_mixture.smc's (131,072, 1,000) from graph replays; and that
+    model's batched gradient with them and with the plain expression."""
+    import fugue_tpu_torch as ftt
+    from fugue_tpu_torch.ops import kernels as K
+    from perfbench import harness
+
+    holds = {}
+    for c, n in (NORMAL_PLANE_SHAPE, (1, 1), (3, 1), (1, 3), (3, 1001),
+                 (5, 2 * K._PLANE_TILE + 3)):
+        for dtype in (torch.float32, torch.float64):
+            args = _normal_plane_inputs(c, n, dtype, seed=c + n)
+            holds[f"{c}x{n} {str(dtype)[6:]}"] = _hold_normal_plane(K, *args, f"plane {(c, n)}")
+    # a cotangent that is a view: every other row of a wider plane, from an
+    # odd element, and one row broadcast (stride 0)
+    y, loc, scale, _ = _normal_plane_inputs(6, 1001, torch.float32, seed=9)
+    wide = torch.randn(12, 1003, device="cuda")
+    for name, cot in (("rows_of_a_wider_plane", wide[::2, 1:1002]),
+                      ("broadcast_row", torch.randn(1001, device="cuda").expand(6, 1001))):
+        holds[name] = _hold_normal_plane(K, y, loc, scale, cot, name)
+    emit({"phase": "normal_plane", "holds": holds})
+
+    c, n = NORMAL_PLANE_SHAPE
+    y, loc, scale, cot = _normal_plane_inputs(c, n, torch.float32, seed=1)
+    reset_launches()
+    _same_from_graph(lambda: K._plane(y, loc, scale), "normal_plane forward")
+    _same_from_graph(lambda: torch.stack(K._plane_grad(cot, y, loc, scale)),
+                     "normal_plane backward")
+    # per element: the forward writes the plane, the backward reads g; y,
+    # loc and scale read once, the (C,) results written once. Operations:
+    # subtract, scale, square-and-add (3); the backward 5 (and the sums')
+    fwd_bound, fwd_by = bound_ms(4 * c * n + 4 * n + 8 * c, 3 * c * n)
+    bwd_bound, bwd_by = bound_ms(4 * c * n + 4 * n + 16 * c, 5 * c * n)
+    row = {"phase": "normal_plane", "rows": c, "n": n, "dtype": "float32",
+           "forward_ms": device_ms(lambda: K._plane(y, loc, scale)),
+           "forward_plain_ms": device_ms(lambda: K.normal_plane_ref(y, loc, scale), calls=2),
+           "forward_bound_ms": fwd_bound, "forward_bound_by": fwd_by,
+           "backward_ms": device_ms(lambda: K._plane_grad(cot, y, loc, scale)),
+           "backward_plain_ms": device_ms(lambda: K.normal_plane_grad_ref(cot, y, loc, scale),
+                                          calls=2),
+           "backward_bound_ms": bwd_bound, "backward_bound_by": bwd_by,
+           **holds[f"{c}x{n} float32"]}
+
+    # one PyTorch call writes the negated forward plane: the Gaussian NLL,
+    # full=True, unreduced. It checks var >= 0 on the host, so it cannot be
+    # captured in a graph: timed eagerly, that check's sync included.
+    def lfn():
+        return torch.nn.functional.gaussian_nll_loss(
+            loc[:, None].expand(c, n), y.expand(c, n), scale * scale, full=True,
+            reduction="none")
+    row["forward_library_ms"] = median_ms(lfn)
+    row["forward_library_vs_f64"] = (-lfn().double() - K.normal_plane_ref(
+        y.double(), loc.double(), scale.double())).abs().max().item()
+    row["launches"] = read_launches()
+    row["forward_over_bound"] = row["forward_ms"] / fwd_bound
+    row["backward_over_bound"] = row["backward_ms"] / bwd_bound
+    # the SMC cell's batched gradient: gmm_mixture at 131,072 particles,
+    # staged first; then one gradient alone with the launch counts zeroed
+    # just before it: one forward and one backward launch per component
+    config = harness.config("gmm_mixture")
+    staged = ftt.stage(config.build(0, "cuda").model_fn, device="cuda")
+    q = torch.randn(c, config.DIM, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(3)) * 0.3 + torch.tensor([-2.7, 1.7, 0.0, 0.0, 0.3],
+                                                              device="cuda")
+    force = torch.func.vmap(torch.func.grad_and_value(staged.potential))
+    reset_launches()
+    routed = force(q)
+    row["gradient_launches"] = read_launches()
+    # device time from replays; a call's time, eager: host dispatch and
+    # device together, whichever is longer
+    row["gradient_ms"] = device_ms(lambda: force(q), calls=2)
+    # at 64 particles a call is its host dispatch
+    row["gradient_call_ms"] = median_ms(lambda: force(q))
+    row["gradient_call_ms_64"] = median_ms(lambda: force(q[:64]))
+    routes = K.normal_plane_routes
+    K.normal_plane_routes = lambda value, loc, scale: False
+    try:
+        plain = force(q)
+        row["gradient_plain_ms"] = device_ms(lambda: force(q), calls=2)
+        row["gradient_plain_call_ms"] = median_ms(lambda: force(q))
+        row["gradient_plain_call_ms_64"] = median_ms(lambda: force(q[:64]))
+        # the same potential in float64, plain, in blocks of particles
+        staged64 = ftt.stage(config.build(0, "cuda", dtype=torch.float64).model_fn,
+                             device="cuda")
+        force64 = torch.func.vmap(torch.func.grad_and_value(staged64.potential))
+        wide = [force64(block) for block in q.double().split(c // 8)]
+        wide = [torch.cat(parts) for parts in zip(*wide)]
+    finally:
+        K.normal_plane_routes = routes
+    row["gradient_vs_plain"] = _hold_routed_gradient(routed, plain, wide)
+    emit(row)
+    check(row["gradient_launches"]["normal_plane"] == 2
+          and row["gradient_launches"]["normal_plane_grad"] == 2,
+          f"one gmm gradient launched {row['gradient_launches']}, want 2 normal_plane "
+          "and 2 normal_plane_grad")
+    for name, held in row["gradient_vs_plain"].items():
+        check(held["within"], f"routed gmm {name} vs f64: {held['routed_vs_f64']} above "
+              f"four times the plain's {held['plain_vs_f64']}")
+    check(row["forward_over_bound"] <= 1.5 and row["backward_over_bound"] <= 1.5,
+          f"normal_plane above 1.5x its bound: {row['forward_over_bound']:.3f}, "
+          f"{row['backward_over_bound']:.3f}")
+    PATH_HOLDS["normal_plane"]["plane"] = row["forward_vs_plain"]
+    PATH_HOLDS["normal_plane_grad"]["plane"] = max(row["dloc_vs_plain"], row["dscale_vs_plain"])
+    return row
 
 
 def _smc_run(name, staged, n, seed, config, site="mu", phase="smc", mesh=None):
@@ -4469,17 +4656,34 @@ def main(argv=None) -> int:
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     import fugue_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    from fugue_tpu_torch.ops import kernels as K
+
     started = time.perf_counter()
     walls = {}  # seconds per phase, for the smoke's time budget
+    routed = {}  # the phases whose models route a Normal density to normal_plane
 
     def run(name, fn, *args):
-        """``fn(*args)`` when phase ``name`` was asked for, timed; else None."""
+        """``fn(*args)`` when phase ``name`` was asked for, timed, with its
+        calls of the normal_plane forward counted; else None."""
         if name not in phases:
             return None
+        plane, calls = K._plane, [0]
+
+        def counted(*a):
+            calls[0] += 1
+            return plane(*a)
+
         t0 = time.perf_counter()
-        out = fn(*args)
+        K._plane = counted
+        try:
+            out = fn(*args)
+        finally:
+            K._plane = plane
         walls[name] = time.perf_counter() - t0
         emit({"phase_seconds": {name: walls[name]}})
+        if calls[0]:
+            routed[name] = calls[0]
+            emit({"normal_plane_calls": {name: calls[0]}})
         return out
 
     smc_launches = {"lse": 0, "resample": 0}
@@ -4493,6 +4697,7 @@ def main(argv=None) -> int:
     eight_schools_run = run("eight_schools", phase_eight_schools)
     launches = run("gaussian_plate", phase_gaussian_plate)
     smc_rows = run("smc_kernels", phase_smc_kernels)
+    plane_row = run("normal_plane", phase_normal_plane)
     add_smc(run("smc", phase_smc))
     run("nuts_eight_schools", phase_nuts_eight_schools)
     nuts_launches = run("nuts_plate", phase_nuts_plate)
@@ -4536,7 +4741,10 @@ def main(argv=None) -> int:
     if torch.distributed.is_initialized():  # the sharded phases' one-rank group
         torch.distributed.destroy_process_group()
     emit({"phase_seconds": walls, "main_seconds": time.perf_counter() - started,
-          "profiler_sessions": TRACES})
+          "profiler_sessions": TRACES,
+          # calls of the normal_plane forward from Python (a graph replay
+          # runs none) by phase: the phases whose models route
+          "normal_plane_calls": routed})
 
     print(card_line(), flush=True)
     if set(phases) != set(PHASES):
@@ -4571,6 +4779,15 @@ def main(argv=None) -> int:
               smc_launches["lse"]),
         entry("systematic_resample", "resample", "systematic_resample",
               smc_rows[("resample", N_PARTICLES)], smc_launches["resample"]),
+        # one gmm_mixture gradient of the normal_plane phase, alone
+        *[entry(f"normal_plane{part}", f"normal_plane{part}", "normal_plane",
+                {"kernel_ms": plane_row[f"{way}_ms"], "plain_ms": plane_row[f"{way}_plain_ms"],
+                 "bound_ms": plane_row[f"{way}_bound_ms"],
+                 "bound_by": plane_row[f"{way}_bound_by"],
+                 "library_ms": plane_row.get(f"{way}_library_ms"),
+                 "kernel_vs_plain": max(PATH_HOLDS[f"normal_plane{part}"].values())},
+                plane_row["gradient_launches"][f"normal_plane{part}"])
+          for part, way in (("", "forward"), ("_grad", "backward"))],
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

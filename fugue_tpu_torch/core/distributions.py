@@ -49,6 +49,7 @@ from ..errors import (
     check_positive,
     check_probability,
 )
+from ..ops import kernels as _kernels
 from .numerics import log_beta
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -306,6 +307,10 @@ class Normal(Distribution):
         return self.loc + self.scale * self._normal(generator, self._full_shape(sample_shape))
 
     def log_prob(self, value):
+        # data shared by the chains under a per-chain scalar loc and scale:
+        # one kernel writes the plane and one reads it back for the gradient
+        if _kernels.normal_plane_routes(value, self.loc, self.scale):
+            return _kernels.normal_plane(value, self.loc, self.scale)
         z = (value - self.loc) / self.scale
         return -0.5 * z * z - _log(self.scale) - 0.5 * _LOG_2PI
 

@@ -1035,7 +1035,8 @@ def test_gmm_mixture_cell_at_its_size_is_correct_and_traced():
     """The benchmark's ``gmm_mixture.smc`` cell at its size (131,072
     particles, N = 1,000, float32, two whole runs in the window) through the
     harness, traced: ``correct``, and every per-layer metric of the cell
-    read, the SMC kernels' roofline shares below 100%."""
+    read, the SMC kernels' roofline shares below 100%, and both component
+    densities of a gradient through the ``normal_plane`` kernels."""
     from perfbench import harness
 
     settings.enable_x64(False)
@@ -1045,7 +1046,8 @@ def test_gmm_mixture_cell_at_its_size_is_correct_and_traced():
     assert out["correct"], out["checks"]
     names = [m["name"] for m in harness.benchmark()["per_layer"]
              if harness.applies(m, "gmm_mixture.smc")]
-    assert len(names) == 8 and set(names) <= set(out["metrics"])
+    assert len(names) == 9 and set(names) <= set(out["metrics"])
     for name in ("smc.logsumexp_roofline", "smc.resample_roofline"):
         assert 0.0 < out["metrics"][name]["value"] < 100.0
     assert out["metrics"]["smc.host_reads_per_stage"]["value"] == 1.0
+    assert out["metrics"]["density.normal_plane_per_grad"]["value"] == 2.0

@@ -627,6 +627,34 @@ def test_smc_move_device_ms_per_grad_reader(monkeypatch):
     assert _read("smc.move_device_ms_per_grad", run) == pytest.approx(2.0)
 
 
+def _plane_call(ms, thread=1):
+    return Count("density.normal_plane", W0 + int(ms * 1e6), 1, thread, {})
+
+
+@pytest.mark.parametrize("calls, want", [
+    # two calls in each of the move's two gradients; one in a potential
+    # outside any move, one on another thread, one between spans: not counted
+    ([11, 12, 21, 22, 55, (23, 7), 35], 2.0),
+    ([11, 12, 21], 1.5),
+    ([55, (23, 7)], 0.0),
+    ([], None),  # a program without the kernel's count (the parent) reads nothing
+], ids=["two_per_gradient", "uneven", "none_inside", "no_counts"])
+def test_density_normal_plane_per_grad_reader(calls, want, monkeypatch):
+    recs = [_smc_stage(0, 40, 2), _span("smc.move", 10, 40, 3, 2),
+            _span("potential", 10, 20, 4, 3), _span("potential", 20, 30, 5, 3),
+            _span("potential", 50, 60, 6)]
+    recs += [_plane_call(*c) if isinstance(c, tuple) else _plane_call(c) for c in calls]
+    got = _read("density.normal_plane_per_grad", _smc_run(recs, monkeypatch))
+    assert got == (None if want is None else pytest.approx(want))
+
+
+def test_density_normal_plane_per_grad_reader_without_moves(monkeypatch):
+    recs = [_span("potential", 10, 20, 4), _plane_call(11)]
+    assert _read("density.normal_plane_per_grad", _smc_run(recs, monkeypatch)) is None
+    assert _read("density.normal_plane_per_grad",
+                 SimpleNamespace(trace=None, counters={}, cell={})) is None
+
+
 def test_smc_roofline_readers(monkeypatch):
     """Least bytes over the HBM rate over the kernels' device time: 2 calls
     of each at N = 1,000 take 2 µs (logsumexp) and 4 µs (resample)."""
